@@ -1,0 +1,91 @@
+"""Packed bitmap primitives for Hippo partial histograms (port of
+``repro.core.bitmap``).
+
+Bitmaps are fixed-width packed words over the H buckets of the complete
+histogram: bit ``b`` of word ``w`` is bucket ``w*32 + b``. The reference
+packs into uint32; here the words are **int32 tensors holding the same
+bits**, because PyTorch's CPU kernels do not shift uint32 (``>>`` raises
+"rshift_cpu not implemented for 'UInt32'"). Right shifts on int32 are
+arithmetic, so every bit extraction masks after shifting, and packing goes
+through int64 so bit 31 lands as the sign bit. ``words.view(np.uint32)`` on
+the host (or ``.numpy().view(np.uint32)``) gives the reference's words back.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+
+WORD_BITS = 32
+
+
+def num_words(num_bits: int) -> int:
+    """Words needed to hold ``num_bits`` bits."""
+    return (num_bits + WORD_BITS - 1) // WORD_BITS
+
+
+def zeros(num_bits: int, *leading: int, device=None) -> torch.Tensor:
+    """An all-zero packed bitmap with optional leading batch dims."""
+    return torch.zeros((*leading, num_words(num_bits)), dtype=torch.int32,
+                       device=resolve_device(device))
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 with the same 32 bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def from_bool(bits: torch.Tensor) -> torch.Tensor:
+    """Pack a (..., H) bool tensor into (..., ceil(H/32)) int32 words.
+
+    One pass per bit position over (..., W) int64 accumulators, so memory
+    stays at the size of the words, not 32x the bits.
+    """
+    h = bits.shape[-1]
+    w = num_words(h)
+    pad = w * WORD_BITS - h
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros((*bits.shape[:-1], pad))],
+                         dim=-1)
+    bits = bits.reshape(*bits.shape[:-1], w, WORD_BITS)
+    acc = torch.zeros(bits.shape[:-1], dtype=torch.int64, device=bits.device)
+    for b in range(WORD_BITS):
+        acc |= bits[..., b].to(torch.int64) << b
+    return _wrap_int32(acc)
+
+
+def to_bool(words: torch.Tensor, num_bits: int) -> torch.Tensor:
+    """Unpack (..., W) int32 words to a (..., num_bits) bool tensor."""
+    shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
+    bits = (words[..., :, None] >> shifts) & 1
+    bits = bits.reshape(*words.shape[:-1], words.shape[-1] * WORD_BITS)
+    return bits[..., :num_bits].to(torch.bool)
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Per-bitmap population count over the trailing word axis (int32)."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = ((x * 0x01010101) >> 24) & 0xFF
+    return x.sum(dim=-1).to(torch.int32)
+
+
+def any_joint(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """True where bitmaps share at least one set bit (joint buckets, §3.2).
+
+    Broadcasts over leading dims; reduces the trailing word axis.
+    """
+    return ((a & b) != 0).any(dim=-1)
+
+
+def range_mask(num_bits: int, lo: torch.Tensor, hi: torch.Tensor
+               ) -> torch.Tensor:
+    """Packed bitmaps with bits [lo, hi] (inclusive) set, one per element of
+    the (...,) int tensors ``lo``/``hi``: (..., W) int32."""
+    idx = torch.arange(num_words(num_bits) * WORD_BITS, dtype=torch.int64,
+                       device=lo.device)
+    bits = ((idx >= lo[..., None]) & (idx <= hi[..., None])
+            & (idx < num_bits))
+    return from_bool(bits)

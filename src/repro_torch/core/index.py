@@ -1,0 +1,306 @@
+"""Hippo index — structure, build and the compact batch search (port of
+``repro.core.index``, read side).
+
+State layout as in the reference, as tensors on one device; a sharded index
+stacks every field along a leading shard axis (``core.partition``):
+
+  bounds       (H+1,) f32   complete histogram boundaries
+  bitmaps      (S, W) i32   partial histograms, packed (uint32 bits in int32)
+  starts/ends  (S,)   i32   first / last page summarized by each slot
+  sorted_order (S,)   i32   logical (page-ascending) position -> physical slot
+  slot_live    (S,)   bool  false for slots abandoned by relocation
+  num_entries, num_slots, summarized_until: 0-d i32
+
+The compact search runs the reference's ``search_compact_many`` pipeline with
+an explicit shard axis instead of a vmap: the joint-bucket filter
+(``kernels.batch_filter``), the entry -> page expansion, the batch union
+selected into a fixed-size slab of page ids, the fused inspect
+(``kernels.compact_inspect``, which reads pages through the selection and
+makes no slab copy) and, with ``top_k``, row ids derived from the kernel's
+per-(query, page) counts. Maintenance (inserts, vacuum, remaps) comes with a
+later slice (ROADMAP.md, queue 1 item 9).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitmap as bm
+from repro_torch.core import grouping
+from repro_torch.core.histogram import Histogram
+from repro_torch.kernels.batch_filter import batch_filter_sharded
+from repro_torch.kernels.compact_inspect import compact_inspect
+
+_INT32_MAX = np.iinfo(np.int32).max
+
+
+@dataclass(frozen=True)
+class HippoConfig:
+    resolution: int = 400          # H — complete histogram resolution
+    density: float = 0.2           # D — partial histogram density threshold
+    page_card: int = 50            # tuples per page
+    max_slots: int = 1 << 14       # physical entry capacity
+    relocate_on_update: bool = True  # model §5.1 out-of-place updates
+
+    @property
+    def words(self) -> int:
+        return bm.num_words(self.resolution)
+
+
+class HippoState(NamedTuple):
+    bounds: torch.Tensor        # (H+1,) f32
+    bitmaps: torch.Tensor       # (S, W) i32
+    starts: torch.Tensor        # (S,) i32
+    ends: torch.Tensor          # (S,) i32
+    sorted_order: torch.Tensor  # (S,) i32
+    slot_live: torch.Tensor     # (S,) bool
+    num_entries: torch.Tensor   # i32 scalar
+    num_slots: torch.Tensor     # i32 scalar
+    summarized_until: torch.Tensor  # i32 scalar
+
+    @property
+    def histogram(self) -> Histogram:
+        return Histogram(self.bounds)
+
+
+class CompactBatchResult(NamedTuple):
+    """Per-query results of the compact search (fields as in the reference;
+    see ``repro.core.index.CompactBatchResult``)."""
+    counts: torch.Tensor           # (Q,) i32
+    pages_inspected: torch.Tensor  # (Q,) i32
+    entries_matched: torch.Tensor  # (Q,) i32
+    truncated: torch.Tensor        # (Q,) bool
+    bucket_needed: torch.Tensor    # i32 scalar
+    pages_selected: torch.Tensor   # i32 scalar
+    pages_gathered: torch.Tensor   # i32 scalar
+    row_ids: torch.Tensor          # (Q, top_k) i32, ascending, -1 padded
+
+
+# ---------------------------------------------------------------------------
+# Build (§4, Algorithm 2)
+# ---------------------------------------------------------------------------
+
+def build(cfg: HippoConfig, hist: Histogram, keys: torch.Tensor,
+          valid: torch.Tensor) -> HippoState:
+    """Initialize Hippo over a paged key column on ``keys.device``.
+
+    Device: bucket probe + page bits; host: the grouping scan and entry
+    extraction. Returns a fixed-capacity ``HippoState``.
+    """
+    num_pages = keys.shape[0]
+    if num_pages == 0:
+        starts = ends = np.zeros((0,), np.int32)
+        packed = np.zeros((0, cfg.words), np.uint32)
+    else:
+        bits = grouping.page_bucket_bits(hist, keys, valid, cfg.resolution)
+        flags, entry_words = grouping.group_pages(
+            grouping.page_words_host(bits), cfg.resolution, cfg.density)
+        starts, ends, packed = grouping.finalize_entries(flags, entry_words)
+    e = starts.shape[0]
+    if e > cfg.max_slots:
+        raise ValueError(f"built {e} entries > max_slots {cfg.max_slots}; raise capacity")
+    s, w = cfg.max_slots, cfg.words
+    bitmaps = np.zeros((s, w), np.uint32)
+    bitmaps[:e] = packed
+    st = np.full((s,), _INT32_MAX, np.int32)
+    st[:e] = starts
+    en = np.full((s,), _INT32_MAX, np.int32)
+    en[:e] = ends
+    live = np.zeros((s,), bool)
+    live[:e] = True
+    dev = keys.device
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    return HippoState(
+        bounds=hist.bounds.to(dev),
+        bitmaps=t(bitmaps.view(np.int32)),
+        starts=t(st),
+        ends=t(en),
+        sorted_order=torch.arange(s, dtype=torch.int32, device=dev),
+        slot_live=t(live),
+        num_entries=scalar(e),
+        num_slots=scalar(e),
+        summarized_until=scalar(num_pages - 1 if e else -1),
+    )
+
+
+def stack_states(states: list[HippoState]) -> HippoState:
+    """Stack per-shard states along a leading shard axis."""
+    return HippoState(*(torch.stack([st[i] for st in states])
+                        for i in range(len(HippoState._fields))))
+
+
+# ---------------------------------------------------------------------------
+# Compact batch search (§3 Algorithm 1, gather-then-inspect)
+# ---------------------------------------------------------------------------
+
+def _live_slots(shards: HippoState) -> torch.Tensor:
+    """(S, E) bool: live slots below each shard's ``num_slots``."""
+    e = shards.slot_live.shape[1]
+    slot = torch.arange(e, dtype=torch.int32, device=shards.slot_live.device)
+    return (shards.slot_live & (slot[None, :] < shards.num_slots[:, None])
+            ).contiguous()
+
+
+def _logical_starts(shards: HippoState) -> torch.Tensor:
+    """(S, E) starts in logical (sorted-list) order, padded with INT32_MAX."""
+    e = shards.sorted_order.shape[1]
+    pos = torch.arange(e, dtype=torch.int32, device=shards.starts.device)
+    starts = shards.starts.gather(1, shards.sorted_order.long())
+    return torch.where(pos[None, :] < shards.num_entries[:, None], starts,
+                       _INT32_MAX).contiguous()
+
+
+def _expand_page_mask(shards: HippoState, match: torch.Tensor,
+                      num_pages: int) -> torch.Tensor:
+    """Matched entries -> page masks (Bitmap b of Algorithm 1).
+
+    Live entries partition each shard's summarized pages contiguously in
+    logical order, so every page has at most one owning entry: binary-search
+    each page's logical position once, then gather the owner's match bit per
+    query. Pages past the last entry's ``end`` stay False. match: (S, Q, E)
+    bool -> (S, Q, num_pages) bool.
+    """
+    s, q, _ = match.shape
+    ls = _logical_starts(shards)
+    pages = torch.arange(num_pages, dtype=torch.int32, device=match.device)
+    pages = pages[None, :].expand(s, num_pages).contiguous()
+    pos = torch.searchsorted(ls, pages, right=True).long() - 1
+    slot = shards.sorted_order.gather(1, pos.clamp(min=0)).long()
+    in_range = (pos >= 0) & (pages <= shards.ends.gather(1, slot))
+    owner = slot[:, None, :].expand(s, q, num_pages)
+    return torch.gather(match, 2, owner) & in_range[:, None, :]
+
+
+def _select_union(union: torch.Tensor, max_selected: int) -> torch.Tensor:
+    """(S, P) bool -> (S, M) int32: the first M set pages of each row in
+    ascending order, padded with P (``jnp.nonzero(size=M, fill_value=P)``)."""
+    s, p = union.shape
+    pos = union.cumsum(dim=1) - 1
+    idx = torch.where(union & (pos < max_selected), pos, max_selected)
+    sel = torch.full((s, max_selected + 1), p, dtype=torch.int32,
+                     device=union.device)
+    pages = torch.arange(p, dtype=torch.int32, device=union.device)
+    sel.scatter_(1, idx, pages[None, :].expand(s, p))
+    return sel[:, :max_selected].contiguous()
+
+
+def _first_row_ids(keys: torch.Tensor, valid: torch.Tensor, sel: torch.Tensor,
+                   counts: torch.Tensor, los: torch.Tensor, his: torch.Tensor,
+                   top_k: int) -> torch.Tensor:
+    """Each shard's first ``top_k`` qualifying local row ids per query,
+    ascending, -1 padded: (S, Q, top_k) int64.
+
+    The reference ranks every position of a (Q, M*C) mask; here the kernel's
+    per-(query, slab page) counts locate, per query, the at most ``top_k``
+    slab pages that hold its first ``top_k`` matches (a count > 0 with fewer
+    than ``top_k`` matches before it), and only those pages' C slots are
+    inspected again.
+    """
+    s, p, c = keys.shape
+    q, m = counts.shape[1], counts.shape[2]
+    k = min(top_k, m)
+    cnt = counts.long()
+    need = (cnt > 0) & (cnt.cumsum(dim=2) - cnt < top_k)
+    rank = need.cumsum(dim=2) - 1
+    slot = torch.full((s, q, k + 1), m, dtype=torch.int64, device=keys.device)
+    slab_pos = torch.arange(m, device=keys.device)[None, None, :].expand(s, q, m)
+    slot.scatter_(2, torch.where(need, rank, k), slab_pos)
+    slot = slot[:, :, :k]
+    ok = slot < m
+    page = sel.long().gather(1, slot.clamp(max=m - 1).reshape(s, q * k))
+    page = torch.where(ok.reshape(s, q * k), page, 0)
+    rows = page[:, :, None].expand(s, q * k, c)
+    pk = keys.gather(1, rows).reshape(s, q, k * c)
+    pv = valid.gather(1, rows).reshape(s, q, k * c)
+    ok = ok[:, :, :, None].expand(s, q, k, c).reshape(s, q, k * c)
+    qual = (ok & pv & (pk >= los[None, :, None]) & (pk <= his[None, :, None]))
+    npos = k * c
+    local = (page.reshape(s, q, k, 1) * c
+             + torch.arange(c, device=keys.device)).reshape(s, q, npos)
+    pos = torch.where(qual, torch.arange(npos, device=keys.device), npos)
+    first = pos.sort(dim=2).values[:, :, :min(top_k, npos)]
+    ids = torch.where(first < npos, local.gather(2, first.clamp(max=npos - 1)),
+                      -1)
+    if ids.shape[2] < top_k:
+        ids = torch.nn.functional.pad(ids, (0, top_k - ids.shape[2]), value=-1)
+    return ids
+
+
+def search_compact_many_sharded(shards: HippoState, query_bitmaps: torch.Tensor,
+                                keys: torch.Tensor, valid: torch.Tensor,
+                                los: torch.Tensor, his: torch.Tensor, *,
+                                max_selected: int, top_k: int = 0
+                                ) -> CompactBatchResult:
+    """Batched gather-then-inspect over S shards, count-reduced.
+
+    shards: stacked ``HippoState``; query_bitmaps (S, Q, W) int32, row s
+    converted under shard s's bounds; keys/valid (S, PPS, C) slabs (shard s
+    owns global pages [s*PPS, (s+1)*PPS), entry page ids are slab-local);
+    los/his (Q,) f32. ``max_selected`` is the per-shard slab width. Every
+    field equals the reference's ``search_compact_many_sharded`` bit for bit:
+    counts/pages_inspected/entries_matched sum over shards, ``truncated``
+    ORs, ``bucket_needed`` is the largest per-shard union, and row ids are
+    global (``s * PPS * C + local``) and merged ascending.
+    """
+    if max_selected < 1:
+        raise ValueError(f"max_selected must be >= 1, got {max_selected}")
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0, got {top_k}")
+    s, num_pages, card = keys.shape
+    q = query_bitmaps.shape[1]
+    # Step 2, batched: joint-bucket test + page-range expansion per query.
+    match = batch_filter_sharded(query_bitmaps.contiguous(), shards.bitmaps,
+                                 _live_slots(shards))                # (S, Q, E)
+    page_mask = _expand_page_mask(shards, match, num_pages)          # (S, Q, P)
+    # Union across the batch: one slab of page ids serves every query.
+    union = page_mask.any(dim=1)                                     # (S, P)
+    n_union = union.sum(dim=1, dtype=torch.int32)                    # (S,)
+    sel = _select_union(union, max_selected)                         # (S, M)
+    in_range = sel < num_pages
+    idx = sel.clamp(max=num_pages - 1).long()[:, None, :].expand(s, q, max_selected)
+    sel_mask = (torch.gather(page_mask, 2, idx)
+                & in_range[:, None, :]).contiguous()                 # (S, Q, M)
+    counts = compact_inspect(keys, valid, sel, sel_mask, los, his)  # (S, Q, M)
+    pages_inspected = page_mask.sum(dim=2, dtype=torch.int32)        # (S, Q)
+    covered = sel_mask.sum(dim=2, dtype=torch.int32)
+    if top_k:
+        ids = _first_row_ids(keys, valid, sel, counts, los, his, top_k)
+        offs = torch.arange(s, device=keys.device) * num_pages * card
+        gids = torch.where(ids >= 0, ids + offs[:, None, None], _INT32_MAX)
+        merged = gids.permute(1, 0, 2).reshape(q, -1).sort(dim=1).values
+        merged = merged[:, :top_k]
+        row_ids = torch.where(merged < _INT32_MAX, merged, -1).to(torch.int32)
+    else:
+        row_ids = torch.zeros((q, 0), dtype=torch.int32, device=keys.device)
+    return CompactBatchResult(
+        counts=counts.sum(dim=(0, 2), dtype=torch.int32),
+        pages_inspected=pages_inspected.sum(dim=0, dtype=torch.int32),
+        entries_matched=match.sum(dim=2, dtype=torch.int32).sum(
+            dim=0, dtype=torch.int32),
+        truncated=(covered < pages_inspected).any(dim=0),
+        bucket_needed=n_union.max(),
+        pages_selected=n_union.sum(dtype=torch.int32),
+        pages_gathered=n_union.clamp(max=max_selected).sum(dtype=torch.int32),
+        row_ids=row_ids,
+    )
+
+
+def search_compact_many(state: HippoState, query_bitmaps: torch.Tensor,
+                        keys: torch.Tensor, valid: torch.Tensor,
+                        los: torch.Tensor, his: torch.Tensor, *,
+                        max_selected: int, top_k: int = 0
+                        ) -> CompactBatchResult:
+    """The unsharded compact search: one shard of
+    ``search_compact_many_sharded`` (query_bitmaps (Q, W), keys (P, C))."""
+    return search_compact_many_sharded(
+        stack_states([state]), query_bitmaps[None], keys[None], valid[None],
+        los, his, max_selected=max_selected, top_k=top_k)

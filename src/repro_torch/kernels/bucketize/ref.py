@@ -1,0 +1,24 @@
+"""Plain PyTorch version of the bucket probe: compare and count.
+
+``ids = clip(#{bounds <= v} - 1, 0, H - 1)``, the TPU kernel's own formula,
+in chunks of values so the (chunk, H+1) compare stays small. It is the CPU
+path of ``ops.bucketize_values`` and the CUDA kernel's oracle.
+"""
+from __future__ import annotations
+
+import torch
+
+_CHUNK_ELEMS = 1 << 24
+
+
+def bucketize_ref(values: torch.Tensor, bounds: torch.Tensor,
+                  resolution: int) -> torch.Tensor:
+    """values (N,) f32; bounds (H+1,) f32 nondecreasing -> (N,) int32."""
+    n = values.numel()
+    out = torch.empty((n,), dtype=torch.int32, device=values.device)
+    step = max(1, _CHUNK_ELEMS // max(1, bounds.numel()))
+    for i in range(0, n, step):
+        v = values[i:i + step]
+        cnt = (v[:, None] >= bounds[None, :]).sum(dim=1)
+        out[i:i + step] = (cnt - 1).clamp(0, resolution - 1).to(torch.int32)
+    return out

@@ -1,0 +1,343 @@
+"""Batched multi-predicate query engine — the serving front (port of
+``repro.runtime.engine``, compact mode).
+
+Queries arrive as ``Predicate``s, are admitted into a fixed number of slots,
+execute together, and finished queries free their slot for the next queued
+request. Free slots in a partly filled batch are padded with the empty
+predicate (lo > hi), which matches nothing and is counted in
+``EngineStats.pad_slots``, never as served work.
+
+Compact mode (the default, via ``auto``) runs each batch through the gather
+path (``search_compact_batch``) with the reference's ladder, so every ticket
+and every compact counter equals the reference's for the same stream:
+
+  compact    run at the current slab bucket (a power of two adapted from the
+             batches seen so far)
+  widen      a batch whose union overflows the bucket raises it to the next
+             power of two (capped at the never-truncating ``gather_cap``)
+  fallback   queries whose own pages overflowed this batch's slab re-run at
+             ``gather_cap``, so results are never silently short
+
+Not ported yet, and refused with ``NotImplementedError``: dense mode and the
+routed sharded dispatch (ROADMAP.md queue 1 item 11), writes, deletes, drains
+and drift re-summarization through a writer (items 9-10), and durable
+storage (item 13). Reads never touch a writer, so the read stream's tickets
+and stats are unaffected.
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from repro_torch.core.partition import SUMMARY_POLICIES
+from repro_torch.core.predicate import Predicate
+
+_EMPTY = Predicate(lo=1.0, hi=0.0)   # lo > hi: matches nothing
+
+
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+_SHARD_BUCKET_MIN = 8     # smallest per-shard dispatch width (routed mode)
+_COMPACT_BUCKET_MIN = 64  # smallest gather-slab width
+_FALLBACK_Q_MIN = 8       # smallest fallback query width
+
+_DRAIN_POLICIES = ("sync", "between_batches", "on_depth", "manual")
+_MODES = ("auto", "compact", "dense")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
+                               f"queue 1 {item})")
+
+
+@dataclass
+class QueryTicket:
+    """One submitted predicate and, once its batch ran, its results.
+
+    ``row_ids`` is filled only with ``top_k`` set: the first ``top_k``
+    qualifying global row ids in ascending order (pads stripped).
+    """
+    qid: int
+    pred: Predicate
+    count: int | None = None
+    pages_inspected: int | None = None
+    entries_matched: int | None = None
+    row_ids: np.ndarray | None = None
+    done: bool = False
+
+
+@dataclass
+class EngineStats:
+    """The reference's ``EngineStats`` fields; the writer, persistence and
+    drift fields stay 0 until those slices land."""
+    submitted: int = 0
+    served: int = 0
+    batches: int = 0
+    slots_filled: int = 0
+    pad_slots: int = 0
+    shard_dispatches: int = 0
+    shards_pruned: int = 0
+    shard_queries: dict = field(default_factory=dict)
+    shard_slots: dict = field(default_factory=dict)
+    # -- compact mode (gather path) ------------------------------------------
+    compact_batches: int = 0
+    compact_hits: int = 0
+    compact_fallbacks: int = 0
+    gather_union_pages: int = 0
+    gather_slab_pages: int = 0
+    selected_pages: int = 0
+    table_pages_seen: int = 0
+    # -- async maintenance (runtime.writer) ----------------------------------
+    writes: int = 0
+    deletes: int = 0
+    drains: int = 0
+    drained_rows: int = 0
+    drain_us: float = 0.0
+    queue_depth: int = 0
+    peak_queue_depth: int = 0
+    staged_rows: int = 0
+    # -- durable persistence -------------------------------------------------
+    persists: int = 0
+    persist_pending: int = 0
+    persist_lag: int = 0
+    # -- drift re-summarization ----------------------------------------------
+    resummarizes: int = 0
+    edge_overflow_ratio: float = 0.0
+    learned_refits: int = 0
+    learned_fallbacks: int = 0
+    pruning_before_resummarize: float = 0.0
+    window_selected_pages: int = 0
+    window_table_pages: int = 0
+
+    @property
+    def occupancy(self) -> float:
+        """Fraction of dispatched slots that carried a real query."""
+        total = self.slots_filled + self.pad_slots
+        return self.slots_filled / total if total else 0.0
+
+    @property
+    def gather_occupancy(self) -> float:
+        """Fraction of dispatched gather-slab capacity holding a selected
+        page."""
+        return (self.gather_union_pages / self.gather_slab_pages
+                if self.gather_slab_pages else 0.0)
+
+    @property
+    def selected_page_ratio(self) -> float:
+        """Batch-union pages over table pages across compact batches."""
+        return (self.selected_pages / self.table_pages_seen
+                if self.table_pages_seen else 0.0)
+
+    @property
+    def pruning_after_resummarize(self) -> float:
+        return (self.window_selected_pages / self.window_table_pages
+                if self.window_table_pages else 0.0)
+
+
+class QueryEngine:
+    """Lock-step batched query executor with slot recycling (compact mode).
+
+    Takes the reference's constructor and validates it the same way;
+    ``top_k`` makes every ticket carry up to ``top_k`` qualifying global row
+    ids, and ``compact_bucket`` seeds the adaptive slab bucket. The index's
+    device is the engine's: a ``ShardedHippoIndex`` created with
+    ``device=None`` serves on the card.
+    """
+
+    def __init__(self, index, batch: int = 64, sharded: bool | None = None,
+                 drain_policy: str | None = None, drain_units: int = 1,
+                 drain_depth: int = 256, writer=None, mode: str = "auto",
+                 top_k: int = 0, compact_bucket: int | None = None,
+                 drift_threshold: float | None = 0.25,
+                 auto_resummarize: bool = True,
+                 drift_min_observed: int = 256, summary: str | None = None,
+                 storage_dir=None):
+        if batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        self.index = index
+        self.batch = batch
+        if mode not in _MODES:
+            raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+        if mode == "auto":
+            mode = "dense" if sharded is True else "compact"
+        if mode == "dense":
+            raise _not_ported("mode='dense' (and sharded=True routing)",
+                              "item 11")
+        if sharded is True:
+            raise ValueError(
+                "sharded=True selects dense mode's routed dispatch; "
+                "compact mode runs the fused sharded gather — pass "
+                "mode='dense' for routing or drop sharded=True")
+        if not hasattr(index, "search_compact_batch"):
+            raise ValueError(
+                "mode='compact' needs an index with the gather surface "
+                "(search_compact_batch/gather_cap); got "
+                f"{type(index).__name__}")
+        self.mode = mode
+        if top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        self.top_k = top_k
+        if compact_bucket is not None and compact_bucket < 1:
+            raise ValueError(f"compact_bucket must be >= 1, got {compact_bucket}")
+        self._compact_bucket = _pow2_at_least(compact_bucket
+                                              or _COMPACT_BUCKET_MIN)
+        # The maintenance knobs are validated as the reference validates them;
+        # nothing reads them until the writer is ported.
+        if drain_policy is not None and drain_policy not in _DRAIN_POLICIES:
+            raise ValueError(f"drain_policy must be one of {_DRAIN_POLICIES}, "
+                             f"got {drain_policy!r}")
+        if writer is not None:
+            raise _not_ported("the maintenance writer", "item 10")
+        if drift_threshold is not None and not 0.0 < drift_threshold <= 1.0:
+            raise ValueError(f"drift_threshold must be in (0, 1] or None, "
+                             f"got {drift_threshold}")
+        if summary is not None and summary not in SUMMARY_POLICIES:
+            raise ValueError(f"summary must be one of {SUMMARY_POLICIES} or "
+                             f"None (the index's policy), got {summary!r}")
+        if storage_dir is not None:
+            raise _not_ported("durable storage (storage_dir)", "item 13")
+        self.slots: list[QueryTicket | None] = [None] * batch
+        self.queue: deque[QueryTicket] = deque()
+        self.stats = EngineStats()
+        self._next_qid = 0
+
+    # -- admission -----------------------------------------------------------
+
+    def submit(self, pred: Predicate) -> QueryTicket:
+        """Enqueue a predicate; returns its ticket (filled in by run_batch)."""
+        t = QueryTicket(qid=self._next_qid, pred=pred)
+        self._next_qid += 1
+        self.stats.submitted += 1
+        self.queue.append(t)
+        return t
+
+    def _admit(self) -> None:
+        if not self.queue:
+            return
+        for i in (i for i, t in enumerate(self.slots) if t is None):
+            if not self.queue:
+                break
+            self.slots[i] = self.queue.popleft()
+
+    # -- writes (not ported) -------------------------------------------------
+
+    def write(self, value: float) -> None:
+        raise _not_ported("QueryEngine.write", "items 9-10")
+
+    def delete(self, lo: float, hi: float) -> int:
+        raise _not_ported("QueryEngine.delete", "items 9-10")
+
+    def flush(self) -> int:
+        raise _not_ported("QueryEngine.flush", "item 10")
+
+    def resummarize(self, bounds=None) -> int:
+        raise _not_ported("QueryEngine.resummarize", "item 10")
+
+    # -- execution ------------------------------------------------------------
+
+    def run_batch(self) -> list[QueryTicket]:
+        """Admit queued queries into free slots and execute one compact
+        batch. Returns the tickets retired by this batch."""
+        self._admit()
+        active = [i for i, t in enumerate(self.slots) if t is not None]
+        if not active:
+            return []
+        counts, inspected, matched, row_ids = self._execute_compact(active)
+        finished = []
+        for k, i in enumerate(active):
+            t = self.slots[i]
+            t.count = int(counts[k])
+            t.pages_inspected = int(inspected[k])
+            t.entries_matched = int(matched[k])
+            if row_ids is not None:
+                ids = row_ids[k]
+                t.row_ids = ids[ids >= 0].copy()   # strip the -1 pads
+            t.done = True
+            finished.append(t)
+            self.slots[i] = None          # recycle the slot
+        self.stats.batches += 1
+        self.stats.slots_filled += len(active)
+        self.stats.pad_slots += self.batch - len(active)
+        self.stats.served += len(finished)
+        return finished
+
+    def _execute_compact(self, active: list[int]) -> tuple:
+        """The compact ladder: gather-path batch at the current slab bucket,
+        widen the bucket when the union overflows it, and re-run this
+        batch's truncated queries at the never-truncating cap.
+        ``pages_inspected``/``entries_matched`` come from the first run (they
+        are exact before the gather); counts and row ids are patched from
+        the fallback."""
+        preds = [t.pred if t is not None else _EMPTY for t in self.slots]
+        cap = self.index.gather_cap
+        bucket = min(self._compact_bucket, cap)
+        res = self.index.search_compact_batch(preds, max_selected=bucket,
+                                              top_k=self.top_k)
+        counts = res.counts.cpu().numpy().copy()
+        inspected = res.pages_inspected.cpu().numpy()
+        matched = res.entries_matched.cpu().numpy()
+        trunc = res.truncated.cpu().numpy()
+        row_ids = res.row_ids.cpu().numpy().copy() if self.top_k else None
+        st = self.stats
+        st.compact_batches += 1
+        shards = getattr(self.index, "num_shards", 1)
+        self._account_compact_dispatch(res, bucket * shards)
+        needed = int(res.bucket_needed)
+        if needed > bucket:
+            self._compact_bucket = min(_pow2_at_least(needed), cap)
+        bad = [i for i in active if trunc[i]]
+        if bad:
+            st.compact_fallbacks += len(bad)
+            width = _pow2_at_least(max(len(bad), _FALLBACK_Q_MIN))
+            fb_preds = [self.slots[i].pred for i in bad]
+            fb_preds += [_EMPTY] * (width - len(bad))
+            fb = self.index.search_compact_batch(fb_preds, max_selected=cap,
+                                                 top_k=self.top_k)
+            st.slots_filled += len(bad)
+            st.pad_slots += width - len(bad)
+            self._account_compact_dispatch(fb, cap * shards)
+            if bool(fb.truncated[: len(bad)].any()):
+                raise RuntimeError(
+                    "compact fallback truncated at the full gather cap — "
+                    "the slab no longer covers the table (was the index "
+                    "mutated mid-batch?)")
+            fb_counts = fb.counts.cpu().numpy()
+            fb_ids = fb.row_ids.cpu().numpy() if row_ids is not None else None
+            for k, i in enumerate(bad):
+                counts[i] = fb_counts[k]
+                if row_ids is not None:
+                    row_ids[i] = fb_ids[k]
+        st.compact_hits += len(active) - len(bad)
+        return (counts[active], inspected[active], matched[active],
+                row_ids[active] if row_ids is not None else None)
+
+    def _account_compact_dispatch(self, res, slab_capacity: int) -> None:
+        """Fold one gather dispatch (primary batch or truncation fallback)
+        into the gather telemetry."""
+        st = self.stats
+        st.gather_union_pages += int(res.pages_gathered)
+        st.gather_slab_pages += slab_capacity
+        st.selected_pages += int(res.pages_selected)
+        st.table_pages_seen += self.index.table.num_pages
+        st.window_selected_pages += int(res.pages_selected)
+        st.window_table_pages += self.index.table.num_pages
+
+    def drain(self) -> list[QueryTicket]:
+        """Run batches until the queue and all slots are empty."""
+        finished = []
+        while self.queue or any(t is not None for t in self.slots):
+            finished.extend(self.run_batch())
+        return finished
+
+    def run_all(self, preds: list[Predicate]) -> np.ndarray:
+        """Submit + drain convenience; counts in submission order."""
+        tickets = [self.submit(p) for p in preds]
+        self.drain()
+        return np.asarray([t.count for t in tickets], np.int64)

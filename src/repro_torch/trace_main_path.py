@@ -1,0 +1,83 @@
+"""Where a compact batch's time goes: a ``torch.profiler`` trace of the main
+path on the card.
+
+    PYTHONPATH=src python -m repro_torch.trace_main_path [--rows N] [--seed S]
+
+Builds the index ``chip_smoke.py`` builds (TPC-H SF10 ``l_shipdate`` by
+default, 4 shards, H=400, D=0.2), serves one warm-up batch per engine so the
+slab bucket has widened, then profiles one steady batch of 64 predicates
+without row ids and one with ``top_k=32``. Prints, per batch, the wall time,
+the device-busy share of that window (summed kernel time over wall time)
+and the operators by device time.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.core.partition import ShardedHippoIndex
+from repro_torch.core.predicate import Predicate
+from repro_torch.runtime.engine import QueryEngine
+from repro_torch.storage.table import PagedTable
+
+SHIPDATE_DAYS = 7 * 365
+WIDTHS = (0, 9, 99)
+
+
+def _preds(rng, n: int) -> list[Predicate]:
+    out = []
+    for i in range(n):
+        w = WIDTHS[i % len(WIDTHS)]
+        lo = int(rng.integers(0, SHIPDATE_DAYS - w))
+        out.append(Predicate.between(float(lo), float(lo + w)))
+    return out
+
+
+def _kernels(prof) -> list:
+    """The profile's device-side rows (kernels and copies), by time."""
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=59_986_052)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    rng = np.random.default_rng(args.seed)
+    table = PagedTable.from_values(
+        rng.integers(0, SHIPDATE_DAYS, args.rows).astype(np.float32), 50)
+    sidx = ShardedHippoIndex.create(table, num_shards=4, resolution=400,
+                                    density=0.2)
+    print(f"{torch.cuda.get_device_name(0)}: {args.rows:,} rows, "
+          f"{table.num_pages:,} pages")
+    for top_k in (0, 32):
+        eng = QueryEngine(sidx, batch=64, top_k=top_k)
+        for p in _preds(rng, 64):
+            eng.submit(p)
+        eng.run_batch()                     # warm-up: falls back and widens
+        for p in _preds(rng, 64):
+            eng.submit(p)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.run_batch()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = _kernels(prof)
+        busy_us = sum(e.self_device_time_total for e in rows)
+        print(f"top_k={top_k}: batch wall {wall_us / 1e3:.3f} ms, device busy "
+              f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%} of the window)")
+        for e in rows[:15]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} "
+                  f"calls  {e.key[:80]}")
+
+
+if __name__ == "__main__":
+    main()

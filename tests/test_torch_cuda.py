@@ -1,0 +1,133 @@
+"""CUDA kernels of the PyTorch port against their plain versions, on the card.
+
+Every kernel test here needs a CUDA card and skips without one (the
+condition is evaluated when the test runs, not at import). On a machine with
+a card:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+The module imports torch and the port only (no JAX), so it runs where JAX is
+not installed. The build tests at the bottom run everywhere.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.partition import ShardedHippoIndex
+from repro_torch.core.predicate import Predicate
+from repro_torch.kernels import _build
+from repro_torch.kernels.batch_filter import ops as bf_ops
+from repro_torch.kernels.bucketize import ops as bk_ops
+from repro_torch.kernels.compact_inspect import ops as ci_ops
+from repro_torch.runtime.engine import QueryEngine
+from repro_torch.storage.table import PagedTable
+
+needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
+                                reason="needs a CUDA card")
+
+BIT31 = int(np.uint32(1 << 31).view(np.int32))
+
+
+def _words(rng, shape, density):
+    bits = rng.random((*shape, 32)) < density
+    w = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32))
+
+
+@needs_cuda
+@pytest.mark.parametrize("s,q,e,w", [(3, 70, 300, 13), (1, 1, 1, 2),
+                                     (2, 65, 129, 32), (4, 64, 1024, 13)])
+def test_batch_filter_kernel_equals_plain(s, q, e, w):
+    rng = np.random.default_rng(s * 1000 + q)
+    qb = _words(rng, (s, q, w), 0.02)
+    qb[:, ::7] = 0
+    qb[:, 1::5, -1] |= BIT31
+    ent = _words(rng, (s, e, w), 0.05)
+    ent[:, ::3, -1] = BIT31
+    live = torch.from_numpy(rng.random((s, e)) < 0.8)
+    want = bf_ops.batch_filter_sharded(qb, ent, live)
+    got = bf_ops.batch_filter_sharded(qb.cuda(), ent.cuda(), live.cuda())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("s,p,c,m,q", [(2, 40, 50, 1, 5), (3, 70, 50, 33, 67),
+                                       (1, 5, 7, 40, 3), (2, 300, 50, 256, 64)])
+def test_compact_inspect_kernel_equals_plain(s, p, c, m, q):
+    rng = np.random.default_rng(s * 1000 + m)
+    keys = torch.from_numpy(rng.integers(0, 100, (s, p, c)).astype(np.float32))
+    valid = torch.from_numpy(rng.random((s, p, c)) < 0.9)
+    sel = np.minimum(np.sort(rng.integers(0, p + p // 2, (s, m)), axis=1), p)
+    sel = torch.from_numpy(sel.astype(np.int32))
+    sel_mask = torch.from_numpy(rng.random((s, q, m)) < 0.7)
+    lo = rng.integers(0, 100, q).astype(np.float32)
+    hi = lo + rng.integers(-5, 30, q).astype(np.float32)   # some empty
+    los, his = torch.from_numpy(lo), torch.from_numpy(hi)
+    want = ci_ops.compact_inspect(keys, valid, sel, sel_mask, los, his)
+    got = ci_ops.compact_inspect(*(t.cuda() for t in (keys, valid, sel,
+                                                      sel_mask, los, his)))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("h", [400, 64, 7, 1])
+def test_bucketize_kernel_equals_plain(h):
+    rng = np.random.default_rng(h)
+    b = np.cumsum(rng.random(h + 1) + 0.01).astype(np.float32)
+    v = np.concatenate([rng.uniform(b[0] - 5, b[-1] + 5, 5000), b,
+                        [3.4e38, -3.4e38]]).astype(np.float32)
+    bounds, vals = torch.from_numpy(b), torch.from_numpy(v)
+    want = bk_ops.bucketize_values(vals, bounds, h)
+    got = bk_ops.bucketize_values(vals.cuda(), bounds.cuda(), h)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@needs_cuda
+def test_engine_on_card_equals_engine_on_cpu():
+    rng = np.random.default_rng(3)
+    vals = rng.integers(0, 2555, 40_000).astype(np.float32)
+    preds = [Predicate.between(float(lo), float(lo + w))
+             for lo, w in zip(rng.integers(0, 2400, 90), [0, 9, 99] * 30)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        idx = ShardedHippoIndex.create(PagedTable.from_values(vals, 50),
+                                       num_shards=3, device=dev)
+        eng = QueryEngine(idx, batch=32, top_k=8, compact_bucket=4)
+        tickets = [eng.submit(p) for p in preds]
+        eng.drain()
+        out[dev] = ([(t.count, t.pages_inspected, t.entries_matched,
+                      t.row_ids.tolist()) for t in tickets],
+                    (eng.stats.compact_fallbacks, eng.stats.gather_union_pages,
+                     eng.stats.gather_slab_pages))
+    assert out["cuda"] == out["cpu"]
+
+
+@needs_cuda
+def test_cuda_tensor_raises_when_the_library_fails(monkeypatch):
+    def broken():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(_build, "library", broken)
+    v = torch.zeros(8, device="cuda")
+    b = torch.arange(5, dtype=torch.float32, device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        bk_ops.bucketize_values(v, b, 4)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+def test_sources_hash_changes_with_flags(monkeypatch):
+    before = _build.source_hash()
+    monkeypatch.setattr(_build, "COMPILE_FLAGS", [*_build.COMPILE_FLAGS, "-g"])
+    assert _build.source_hash() != before
+    assert [p.name for p in _build.sources()] == [
+        "batch_filter.cu", "bucketize.cu", "compact_inspect.cu"]

@@ -1,0 +1,112 @@
+"""Port parity: ``repro_torch.runtime.engine.QueryEngine`` against
+``repro.runtime.engine.QueryEngine`` in compact mode.
+
+The same predicate stream through both engines over the same sharded index
+must give identical tickets (count, pages_inspected, entries_matched,
+row_ids) and identical ``EngineStats`` counters, through the bucket ladder:
+a seed bucket small enough that the first batch truncates, falls back and
+widens.
+"""
+import numpy as np
+import pytest
+
+from repro.core.partition import ShardedHippoIndex as JSharded
+from repro.core.predicate import Predicate as JPred
+from repro.runtime.engine import EngineStats as JStats
+from repro.runtime.engine import QueryEngine as JEngine
+from repro.storage.table import PagedTable as JTable
+from repro_torch.core.partition import ShardedHippoIndex as TSharded
+from repro_torch.core.predicate import Predicate as TPred
+from repro_torch.runtime.engine import EngineStats as TStats
+from repro_torch.runtime.engine import QueryEngine as TEngine
+from repro_torch.storage.table import PagedTable as TTable
+
+COUNTERS = ("submitted", "served", "batches", "slots_filled", "pad_slots",
+            "compact_batches", "compact_hits", "compact_fallbacks",
+            "gather_union_pages", "gather_slab_pages", "selected_pages",
+            "table_pages_seen")
+
+
+@pytest.fixture(scope="module")
+def pair():
+    values = np.random.default_rng(21).integers(0, 2555, 9000).astype(np.float32)
+    j = JSharded.create(JTable.from_values(values, 50), num_shards=3,
+                        resolution=400)
+    t = TSharded.create(TTable.from_values(values, 50), num_shards=3,
+                        resolution=400, device="cpu")
+    return j, t
+
+
+def _stream(seed: int, n: int):
+    rng = np.random.default_rng(seed)
+    spans = [(float(lo), float(lo + w)) for lo, w in
+             zip(rng.integers(0, 2500, n), [0, 9, 99, 400] * n)]
+    spans[3] = (7.0, 2.0)                       # empty predicate
+    return [JPred.between(*s) for s in spans], [TPred.between(*s) for s in spans]
+
+
+@pytest.mark.parametrize("batch,top_k,bucket", [(16, 0, 4), (16, 8, 4),
+                                                (5, 3, None)])
+def test_engine_tickets_and_stats_equal_reference(pair, batch, top_k, bucket):
+    j, t = pair
+    jp, tp = _stream(batch + top_k, 41)
+    je = JEngine(j, batch=batch, top_k=top_k, compact_bucket=bucket)
+    te = TEngine(t, batch=batch, top_k=top_k, compact_bucket=bucket)
+    jt = [je.submit(p) for p in jp]
+    tt = [te.submit(p) for p in tp]
+    je.drain()
+    te.drain()
+    for a, b in zip(jt, tt):
+        assert b.done and (a.qid, a.count, a.pages_inspected,
+                           a.entries_matched) == (b.qid, b.count,
+                                                  b.pages_inspected,
+                                                  b.entries_matched)
+        if top_k:
+            assert b.row_ids.dtype == a.row_ids.dtype
+            assert np.array_equal(a.row_ids, b.row_ids)
+        else:
+            assert a.row_ids is None and b.row_ids is None
+    for c in COUNTERS:
+        assert getattr(je.stats, c) == getattr(te.stats, c), c
+    assert je.stats.gather_occupancy == te.stats.gather_occupancy
+    assert je._compact_bucket == te._compact_bucket
+    if bucket == 4:
+        assert te.stats.compact_fallbacks > 0
+
+
+def test_run_all_equals_reference(pair):
+    j, t = pair
+    jp, tp = _stream(77, 30)
+    assert np.array_equal(JEngine(j, batch=8).run_all(jp),
+                          TEngine(t, batch=8).run_all(tp))
+
+
+def test_engine_stats_fields_equal_reference():
+    assert list(TStats.__dataclass_fields__) == list(JStats.__dataclass_fields__)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"batch": 0}, {"mode": "bogus"}, {"mode": "compact", "sharded": True},
+    {"top_k": -1}, {"compact_bucket": 0}, {"drain_policy": "bogus"},
+    {"drift_threshold": 0.0}, {"summary": "bogus"}])
+def test_constructor_refusals_match_reference(pair, kwargs):
+    j, t = pair
+    with pytest.raises(ValueError):
+        JEngine(j, **kwargs)
+    with pytest.raises(ValueError):
+        TEngine(t, **kwargs)
+
+
+def test_unported_surfaces_refuse_loudly(pair, tmp_path):
+    _, t = pair
+    for kwargs in ({"mode": "dense"}, {"sharded": True},
+                   {"storage_dir": tmp_path}, {"writer": object()}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TEngine(t, **kwargs)
+    eng = TEngine(t)
+    for call in (lambda: eng.write(1.0), lambda: eng.delete(0.0, 1.0),
+                 eng.flush, eng.resummarize):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TSharded.create(t.table, summary="learned", device="cpu")
