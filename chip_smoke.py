@@ -19,8 +19,20 @@ each of which exits nonzero on failure:
    (one day, 10 days, 100 days). The first batch must fall back and widen
    its slab. Every count and row-id list is checked against a brute-force
    scan on the card, and every kernel must have launched.
+   2b. The dense and single-query paths, with the counters set to 0 just
+   before and read just after: the Lineitem table of ``--rows`` rows from
+   ``storage.tpch.generate_lineitem(rows, seed)`` and the unsharded
+   ``HippoIndex`` on its ``l_shipdate`` (``build_shipdate_index``); 24
+   seeded ``search`` calls whose tuple masks must equal brute force; TPC-H
+   Q6, Q15 and Q20 at ``selectivity_window(0.01)``, equal to the same
+   queries over the brute-force mask; then 256 predicates through
+   ``QueryEngine(mode="dense")`` on the HippoIndex, and phase 2's 256
+   through the routed and the fused (``sharded=False``) dense engines on
+   the sharded index: every count equals brute force, and on the sharded
+   index every ticket's pages_inspected and entries_matched equal the
+   compact engine's. Every kernel of these paths must have launched.
 3. Each kernel against its plain PyTorch version on the card, exactly, at
-   the main path's shapes and at ragged edges; then the kernel, the plain
+   the main paths' shapes and at ragged edges; then the kernel, the plain
    version and (where one exists) the one PyTorch call that computes the
    same function are timed with CUDA events.
 
@@ -51,6 +63,14 @@ BATCH = 64
 TOP_K = 32
 NUM_PREDS = 256
 WIDTHS = (0, 9, 99)              # one day, 10 days, 100 days (inclusive)
+NUM_SEARCHES = 24                # single-query searches of phase 2b
+TPCH_SF = 0.01                   # selectivity of the TPC-H windows
+# Kernels of the main path (phase 2) and those ported for the dense and
+# single-query paths (phase 2b); each kernel's launches are read from the run
+# of its path.
+MAIN_KERNELS = ("bucketize", "batch_filter", "compact_inspect")
+DENSE_KERNELS = ("batch_filter_unsharded", "bitmap_and", "page_inspect",
+                 "page_inspect_many")
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores, the rate these kernels'
@@ -121,11 +141,15 @@ def main() -> int:
     from repro_torch import kernels as K
     from repro_torch.core import index as hix
     from repro_torch.core.partition import ShardedHippoIndex
-    from repro_torch.core.predicate import Predicate, intervals
+    from repro_torch.core.predicate import (Predicate, intervals,
+                                            to_bucket_bitmap,
+                                            to_bucket_bitmaps)
     from repro_torch.kernels import _build
     from repro_torch.kernels.batch_filter import ops as bf_ops
+    from repro_torch.kernels.bitmap_and import ops as ba_ops
     from repro_torch.kernels.bucketize import ops as bk_ops
     from repro_torch.kernels.compact_inspect import ops as ci_ops
+    from repro_torch.kernels.page_inspect import ops as pi_ops
     from repro_torch.runtime.engine import QueryEngine
     from repro_torch.storage.table import PagedTable
 
@@ -202,17 +226,19 @@ def main() -> int:
         "entries": sidx.num_entries, "build_s": build_s,
         "serve": {f"top_k={k}": v for k, v in serve.items()},
         "launches": launches, "max_memory_allocated": peak}))
-    for name, n in launches.items():
-        if n == 0:
+    for name in MAIN_KERNELS:
+        if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
 
     # brute force on the card: every count and every row-id list
     keys_all = table.device_keys(device=dev).reshape(-1)
     valid_all = table.device_valid(device=dev).reshape(-1)
     los, his = intervals(preds, dev)
+    brute_counts = []
     for q, p in enumerate(preds):
         hit = valid_all & (keys_all >= los[q]) & (keys_all <= his[q])
         count = int(hit.sum())
+        brute_counts.append(count)
         ids = torch.nonzero(hit)[:TOP_K, 0].cpu().numpy()
         for top_k, tk in tickets.items():
             t = tk[q]
@@ -224,6 +250,12 @@ def main() -> int:
                  f"first {TOP_K}")
     print(f"main path checked: {len(preds)} counts x 2 engines and "
           f"{len(preds)} row-id lists equal brute force")
+    del keys_all, valid_all
+
+    # -- 2b. the dense and single-query paths --------------------------------
+    dense = dense_paths(torch, args, K, Predicate, intervals, QueryEngine,
+                        sidx, preds, brute_counts, tickets[0])
+    hidx = dense["hidx"]
 
     # -- 3. kernels against their plain versions, then timed -----------------
     shards = sidx.state.shards
@@ -253,7 +285,7 @@ def main() -> int:
     e, w = shards.bitmaps.shape[1], shards.bitmaps.shape[2]
     nb, how = bound_ms(s * e * w * 4 + s * q * w * 4 + s * e + s * q * e,
                        s * q * e * w)
-    report.append(("batch_filter", bf_ops.kernel, err,
+    report.append(("batch_filter", err,
                    lambda: bf_ops.batch_filter_sharded(qb, shards.bitmaps, live),
                    lambda: bf_ops.batch_filter_sharded_ref(qb, shards.bitmaps,
                                                            live),
@@ -268,7 +300,7 @@ def main() -> int:
     pairs = int(sel_mask.sum())
     nb, how = bound_ms(pages_read * c * 5 + s * m * 4 + s * q * m + q * 8
                        + s * q * m * 4, pairs * c * 3)
-    report.append(("compact_inspect", ci_ops.kernel, err_b,
+    report.append(("compact_inspect", err_b,
                    lambda: ci_ops.compact_inspect(keys, valid, sel, sel_mask,
                                                   blo, bhi),
                    lambda: ci_ops.compact_inspect_ref(keys, valid, sel,
@@ -288,7 +320,7 @@ def main() -> int:
         ids = torch.searchsorted(bounds, bvals, right=True) - 1
         return ids.clamp_(0, RESOLUTION - 1)
 
-    report.append(("bucketize", bk_ops.kernel, err_c,
+    report.append(("bucketize", err_c,
                    lambda: bk_ops.bucketize_values(bvals, bounds, RESOLUTION),
                    lambda: bk_ops.bucketize_ref(bvals, bounds, RESOLUTION),
                    library_bucketize, nb, how, f"N={n} H={RESOLUTION}"))
@@ -296,14 +328,81 @@ def main() -> int:
                        bk_ops.bucketize_values(bvals, bounds, RESOLUTION)):
         fail("bucketize disagrees with torch.searchsorted")
 
-    ragged_edges(torch, bf_ops, ci_ops, bk_ops, dev)
-    print("kernels equal their plain versions at the main path's shapes and "
+    # D: batch_filter (unsharded), at the HippoIndex batch's shapes
+    hst = hidx.state
+    he = hst.bitmaps.shape[0]
+    hlive = hix._live_slots(hix._one_shard(hst))[0]
+    hqb = to_bucket_bitmaps(batch, hst.histogram)
+    err_d = exact(torch, "batch_filter_unsharded",
+                  bf_ops.batch_filter(hqb, hst.bitmaps, hlive),
+                  bf_ops.batch_filter_ref(hqb, hst.bitmaps, hlive))
+    nb, how = bound_ms(he * w * 4 + q * w * 4 + he + q * he, q * he * w)
+    report.append(("batch_filter_unsharded", err_d,
+                   lambda: bf_ops.batch_filter(hqb, hst.bitmaps, hlive),
+                   lambda: bf_ops.batch_filter_ref(hqb, hst.bitmaps, hlive),
+                   None, nb, how, f"Q={q} E={he} W={w}"))
+    # F: bitmap_and, one query of the single-query search
+    one = batch[2]                         # a 100-day predicate
+    qb1 = to_bucket_bitmap(one, hst.histogram).contiguous()
+    err_f = exact(torch, "bitmap_and",
+                  ba_ops.bitmap_and_any(hst.bitmaps, qb1, hlive),
+                  ba_ops.bitmap_and_any_ref(hst.bitmaps, qb1, hlive))
+    nb, how = bound_ms(he * w * 4 + w * 4 + he + he, he * w)
+    report.append(("bitmap_and", err_f,
+                   lambda: ba_ops.bitmap_and_any(hst.bitmaps, qb1, hlive),
+                   lambda: ba_ops.bitmap_and_any_ref(hst.bitmaps, qb1, hlive),
+                   None, nb, how, f"E={he} W={w}"))
+    # E: page_inspect, that query's pages and interval
+    hkeys = hidx.table.device_keys(device=dev)
+    hvalid = hidx.table.device_valid(device=dev)
+    hp, hc = hkeys.shape
+    m1 = hidx.search(one).page_mask.contiguous()
+    lo1, hi1 = (t[0] for t in intervals([one], dev))
+    got = pi_ops.page_inspect(hkeys, hvalid, m1, lo1, hi1)
+    want = pi_ops.page_inspect_ref(hkeys, hvalid, m1, lo1, hi1)
+    err_e = max(exact(torch, "page_inspect qual", got[0], want[0]),
+                exact(torch, "page_inspect counts", got[1], want[1]))
+    sel_pages = int(m1.sum())
+    nb, how = bound_ms(sel_pages * hc * 5 + hp + hp * hc + hp * 4 + 8,
+                       sel_pages * hc * 3)
+    report.append(("page_inspect", err_e,
+                   lambda: pi_ops.page_inspect(hkeys, hvalid, m1, lo1, hi1),
+                   lambda: pi_ops.page_inspect_ref(hkeys, hvalid, m1, lo1,
+                                                   hi1),
+                   None, nb, how,
+                   f"P={hp} C={hc} selected_pages={sel_pages}"))
+    # E, batched: page_inspect_many over the HippoIndex batch's page masks
+    hmatch = bf_ops.batch_filter(hqb, hst.bitmaps, hlive)
+    hmask = hix._expand_page_mask(hix._one_shard(hst), hmatch[None],
+                                  hp).contiguous()             # (1, Q, P)
+    k1, v1 = hkeys[None], hvalid[None]
+    err_m = exact(torch, "page_inspect_many",
+                  pi_ops.page_inspect_many(k1, v1, hmask, blo, bhi),
+                  pi_ops.page_inspect_many_ref(k1, v1, hmask, blo, bhi))
+    union_pages = int(hmask[0].any(dim=0).sum())
+    active = int(hmask.sum())
+    nb, how = bound_ms(union_pages * hc * 5 + q * hp + q * 4 + q * 8,
+                       active * hc * 3)
+    report.append(("page_inspect_many", err_m,
+                   lambda: pi_ops.page_inspect_many(k1, v1, hmask, blo, bhi),
+                   lambda: pi_ops.page_inspect_many_ref(k1, v1, hmask, blo,
+                                                        bhi),
+                   None, nb, how,
+                   f"S=1 Q={q} P={hp} C={hc} union_pages={union_pages} "
+                   f"active_pairs={active}"))
+
+    ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev)
+    print("kernels equal their plain versions at the main paths' shapes and "
           "at ragged edges")
 
+    # each kernel's launches come from the run of the path it was ported for
+    path_launches = {**{n: launches[n] for n in MAIN_KERNELS},
+                     **{n: dense["launches"][n] for n in DENSE_KERNELS}}
     kernels = []
-    for (name, mod, err, fk, fp, fl, nb, how, shapes) in report:
-        row = {"name": name, "route": "cuda", "source": mod.SOURCE,
-               "replaces": mod.REPLACES, "launches": launches[name],
+    for (name, err, fk, fp, fl, nb, how, shapes) in report:
+        k = K.KERNELS[name]
+        row = {"name": name, "route": "cuda", "source": k.source,
+               "replaces": k.replaces, "launches": path_launches[name],
                "max_abs_err": err, "ms": time_ms(torch, fk, 20),
                "plain_ms": time_ms(torch, fp, 2), "bound_ms": nb,
                "bound_by": how,
@@ -317,10 +416,125 @@ def main() -> int:
     return 0
 
 
-def ragged_edges(torch, bf_ops, ci_ops, bk_ops, dev) -> None:
+def serve_stream(torch, QueryEngine, idx, preds, **kw) -> tuple:
+    """Drain ``preds`` through one engine; (engine, tickets, q/s after the
+    first batch, seconds of the first batch)."""
+    eng = QueryEngine(idx, batch=BATCH, **kw)
+    tk = [eng.submit(p) for p in preds]
+    t0 = time.perf_counter()
+    eng.run_batch()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng.drain()
+    torch.cuda.synchronize()
+    return eng, tk, (len(preds) - BATCH) / (time.perf_counter() - t1), t1 - t0
+
+
+def dense_paths(torch, args, K, Predicate, intervals, QueryEngine, sidx,
+                preds, brute_counts, compact_tickets) -> dict:
+    """Phase 2b: the unsharded HippoIndex of the Lineitem table, single-query
+    searches, TPC-H Q6/Q15/Q20, and the three dense engines."""
+    from repro_torch.storage import tpch
+    t0 = time.perf_counter()
+    li = tpch.generate_lineitem(args.rows, args.seed)
+    print(f"lineitem: {li.card:,} rows generated "
+          f"({time.perf_counter() - t0:.3f} s)")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hidx = tpch.build_shipdate_index(li)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dev = hidx.device
+    keys = hidx.table.device_keys(device=dev)
+    valid = hidx.table.device_valid(device=dev)
+
+    # (b) single-query searches: tuple masks equal brute force
+    rng = np.random.default_rng(args.seed + 1)
+    spreds = make_preds(Predicate, rng, NUM_SEARCHES)
+    lat = []
+    for p in spreds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = hidx.search(p)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        lo, hi = intervals([p], dev)
+        brute = valid & (keys >= lo[0]) & (keys <= hi[0])
+        if not torch.equal(res.qualified, brute):
+            fail(f"search {p}: qualified differs from brute force in "
+                 f"{int((res.qualified != brute).sum())} tuples")
+        if int(res.count) != int(brute.sum()):
+            fail(f"search {p}: count {int(res.count)} != {int(brute.sum())}")
+
+    # (c) TPC-H Q6/Q15/Q20 against the same queries over brute force
+    wlo, whi = tpch.selectivity_window(TPCH_SF)
+    lo, hi = intervals([Predicate.between(wlo, whi)], dev)
+    mask = (valid & (keys >= lo[0]) & (keys <= hi[0])).reshape(-1)
+    mask = mask[: hidx.table.cardinality].cpu().numpy()
+    t0 = time.perf_counter()
+    got = (tpch.q6(li, hidx, wlo, whi), tpch.q15(li, hidx, wlo, whi),
+           tpch.q20(li, hidx, wlo, whi))
+    tpch_s = time.perf_counter() - t0
+    want = (tpch.q6_over(li, mask), tpch.q15_over(li, mask),
+            tpch.q20_over(li, mask))
+    if got != want:
+        fail(f"TPC-H at sf={TPCH_SF}: {got} != brute force {want}")
+
+    # (d) the dense engines
+    flat_k, flat_v = keys.reshape(-1), valid.reshape(-1)
+    los, his = intervals(preds, dev)
+    hbrute = [int((flat_v & (flat_k >= los[q]) & (flat_k <= his[q])).sum())
+              for q in range(len(preds))]
+    engines = {}
+    for name, idx, kw, want_counts in (
+            ("hippo_dense", hidx, {}, hbrute),
+            ("sharded_routed", sidx, {}, brute_counts),
+            ("sharded_fused", sidx, {"sharded": False}, brute_counts)):
+        eng, tk, qps, first_s = serve_stream(torch, QueryEngine, idx, preds,
+                                             mode="dense", **kw)
+        for q, t in enumerate(tk):
+            if not t.done or t.count != want_counts[q]:
+                fail(f"{name} query {q} {preds[q]}: count {t.count} != "
+                     f"brute force {want_counts[q]}")
+            c = compact_tickets[q]
+            if idx is sidx and (t.pages_inspected, t.entries_matched) != \
+                    (c.pages_inspected, c.entries_matched):
+                fail(f"{name} query {q}: pages/entries "
+                     f"{(t.pages_inspected, t.entries_matched)} != compact "
+                     f"{(c.pages_inspected, c.entries_matched)}")
+        st = eng.stats
+        engines[name] = {"qps_after_first": qps, "first_batch_s": first_s,
+                         "batches": st.batches,
+                         "shard_dispatches": st.shard_dispatches,
+                         "shards_pruned": st.shards_pruned,
+                         "occupancy": st.occupancy}
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print("dense paths: " + json.dumps({
+        "rows": li.card, "pages": hidx.table.num_pages,
+        "slots": hidx.cfg.max_slots, "entries": hidx.num_entries,
+        "build_s": build_s, "searches": len(spreds),
+        "search_ms_mean": 1e3 * sum(lat) / len(lat),
+        "search_ms_min": 1e3 * min(lat),
+        "tpch": {"sf": TPCH_SF, "window": [wlo, whi], "q6": got[0],
+                 "q15": list(got[1]), "q20": got[2], "seconds": tpch_s},
+        "engines": engines, "launches": launches,
+        "max_memory_allocated": peak}))
+    for name in ("bucketize", "batch_filter", *DENSE_KERNELS):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the dense paths")
+    print(f"dense paths checked: {len(spreds)} tuple masks, Q6/Q15/Q20 and "
+          f"{len(preds)} counts x 3 dense engines equal brute force")
+    return {"hidx": hidx, "launches": launches}
+
+
+def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
     """Kernel == plain version at shapes off the kernels' tiles: Q across the
-    query tile, E off the entry tile, C=50 and M=1 / M across the page tile,
-    empty intervals, all-zero query rows, words with bit 31 set."""
+    query tile, Q=1 and Q=65, E off the entry tile, C=50 and C=7, M=1 / M
+    across the page tile, P off the page tiles, empty intervals, all-zero
+    query rows, words with bit 31 set."""
     rng = np.random.default_rng(1)
 
     def words(shape, density):
@@ -364,6 +578,47 @@ def ragged_edges(torch, bf_ops, ci_ops, bk_ops, dev) -> None:
         exact(torch, f"bucketize ragged H={h}",
               bk_ops.bucketize_values(vals, bounds, h),
               bk_ops.bucketize_ref(vals, bounds, h))
+    for q, e, w in ((70, 300, 13), (1, 1, 2), (65, 257, 32), (64, 129, 13)):
+        qb = words((q, w), 0.02)
+        qb[::7] = 0                                      # all-zero queries
+        qb[1::5, -1] |= torch.tensor(np.uint32(1 << 31).view(np.int32),
+                                     device=dev)         # bit 31 only
+        ent = words((e, w), 0.05)
+        ent[::3, -1] = torch.tensor(np.uint32(1 << 31).view(np.int32),
+                                    device=dev)
+        live = torch.from_numpy(rng.random(e) < 0.8).to(dev)
+        exact(torch, f"batch_filter_unsharded ragged {(q, e, w)}",
+              bf_ops.batch_filter(qb, ent, live),
+              bf_ops.batch_filter_ref(qb, ent, live))
+        for query in (qb[-1].contiguous(), qb[0].contiguous()):
+            exact(torch, f"bitmap_and ragged {(e, w)}",
+                  ba_ops.bitmap_and_any(ent, query, live),
+                  ba_ops.bitmap_and_any_ref(ent, query, live))
+    for p, c in ((1, 50), (63, 50), (65, 7), (130, 50), (3, 1)):
+        keys = torch.from_numpy(
+            rng.integers(0, 100, (p, c)).astype(np.float32)).to(dev)
+        valid = torch.from_numpy(rng.random((p, c)) < 0.9).to(dev)
+        mask = torch.from_numpy(rng.random(p) < 0.6).to(dev)
+        for lo, hi in ((10.0, 40.0), (50.0, 50.0), (30.0, 20.0)):
+            got = pi_ops.page_inspect(keys, valid, mask, lo, hi)
+            want = pi_ops.page_inspect_ref(keys, valid, mask, lo, hi)
+            exact(torch, f"page_inspect ragged {(p, c, lo, hi)} qual",
+                  got[0], want[0])
+            exact(torch, f"page_inspect ragged {(p, c, lo, hi)} counts",
+                  got[1], want[1])
+    for s, p, c, q in ((1, 40, 50, 1), (3, 70, 50, 65), (1, 5, 7, 3),
+                       (2, 2049, 7, 64), (4, 130, 1, 9)):
+        keys = torch.from_numpy(
+            rng.integers(0, 100, (s, p, c)).astype(np.float32)).to(dev)
+        valid = torch.from_numpy(rng.random((s, p, c)) < 0.9).to(dev)
+        page_mask = torch.from_numpy(rng.random((s, q, p)) < 0.7).to(dev)
+        lo = rng.integers(0, 100, q).astype(np.float32)
+        hi = lo + rng.integers(-5, 30, q).astype(np.float32)   # some empty
+        los = torch.from_numpy(lo).to(dev)
+        his = torch.from_numpy(hi).to(dev)
+        exact(torch, f"page_inspect_many ragged {(s, p, c, q)}",
+              pi_ops.page_inspect_many(keys, valid, page_mask, los, his),
+              pi_ops.page_inspect_many_ref(keys, valid, page_mask, los, his))
 
 
 if __name__ == "__main__":

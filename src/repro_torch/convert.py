@@ -1,17 +1,18 @@
-"""Carry a sharded index built by the JAX package into the port.
+"""Carry an index built by the JAX package into the port.
 
 The reference's state is handed over as plain numpy arrays and Python
 scalars (nothing of ``repro`` is imported here); ``from_arrays`` turns them
-into a port ``ShardedHippoIndex`` that serves the same queries with the same
-results. Keys of ``arrays``:
+into a port ``ShardedHippoIndex`` and ``hippo_index_from_arrays`` into a
+port ``HippoIndex``, each serving the same queries with the same results.
+Keys of ``arrays``:
 
   bounds, bitmaps, starts, ends, sorted_order, slot_live, num_entries,
   num_slots, summarized_until
-                    the stacked ``HippoState`` fields, each with its leading
-                    shard axis (bitmaps uint32 (S, E, W): the same bits are
-                    carried as int32)
-  summaries         (S, W) uint32 per-shard summary bitmaps
-  num_shards, pages_per_shard                               the ShardSpec
+                    the ``HippoState`` fields; for a sharded index each with
+                    its leading shard axis (bitmaps uint32 (S, E, W), or
+                    (E, W) unsharded: the same bits are carried as int32)
+  summaries         (S, W) uint32 per-shard summary bitmaps (sharded only)
+  num_shards, pages_per_shard                  the ShardSpec (sharded only)
   resolution, density, page_card, max_slots, relocate_on_update
                                                             the HippoConfig
   keys, valid, num_pages, fill                               the PagedTable
@@ -21,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.hippo import HippoIndex
 from repro_torch.core.index import HippoConfig, HippoState
 from repro_torch.core.partition import (ShardedHippoIndex, ShardedHippoState,
                                         ShardSpec)
@@ -35,6 +37,23 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)
 
 
+def _config(arrays: dict) -> HippoConfig:
+    return HippoConfig(resolution=int(arrays["resolution"]),
+                       density=float(arrays["density"]),
+                       page_card=int(arrays["page_card"]),
+                       max_slots=int(arrays["max_slots"]),
+                       relocate_on_update=bool(arrays["relocate_on_update"]))
+
+
+def _table(arrays: dict, page_card: int) -> PagedTable:
+    keys = np.asarray(arrays["keys"], np.float32)
+    return PagedTable(page_card=page_card, capacity_pages=keys.shape[0],
+                      keys=keys.copy(),
+                      valid=np.asarray(arrays["valid"], bool).copy(),
+                      num_pages=int(arrays["num_pages"]),
+                      fill=int(arrays["fill"]))
+
+
 def from_arrays(arrays: dict, device=None) -> ShardedHippoIndex:
     """A port ``ShardedHippoIndex`` on ``device`` (None: the card) holding
     the given reference state and table."""
@@ -44,19 +63,23 @@ def from_arrays(arrays: dict, device=None) -> ShardedHippoIndex:
                               summaries=_tensor(arrays["summaries"], dev))
     spec = ShardSpec(num_shards=int(arrays["num_shards"]),
                      pages_per_shard=int(arrays["pages_per_shard"]))
-    cfg = HippoConfig(resolution=int(arrays["resolution"]),
-                      density=float(arrays["density"]),
-                      page_card=int(arrays["page_card"]),
-                      max_slots=int(arrays["max_slots"]),
-                      relocate_on_update=bool(arrays["relocate_on_update"]))
-    keys = np.asarray(arrays["keys"], np.float32)
-    table = PagedTable(page_card=cfg.page_card, capacity_pages=keys.shape[0],
-                       keys=keys.copy(),
-                       valid=np.asarray(arrays["valid"], bool).copy(),
-                       num_pages=int(arrays["num_pages"]),
-                       fill=int(arrays["fill"]))
+    cfg = _config(arrays)
+    table = _table(arrays, cfg.page_card)
     if shards.bitmaps.shape[:2] != (spec.num_shards, cfg.max_slots):
         raise ValueError(f"bitmaps {tuple(shards.bitmaps.shape)} do not match "
                          f"{spec.num_shards} shards x {cfg.max_slots} slots")
     return ShardedHippoIndex(cfg=cfg, spec=spec, state=state, table=table,
                              device=dev)
+
+
+def hippo_index_from_arrays(arrays: dict, device=None) -> HippoIndex:
+    """A port ``HippoIndex`` on ``device`` (None: the card) holding the given
+    unsharded reference state and table."""
+    dev = resolve_device(device)
+    state = HippoState(*(_tensor(arrays[f], dev) for f in HippoState._fields))
+    cfg = _config(arrays)
+    if state.bitmaps.shape[0] != cfg.max_slots:
+        raise ValueError(f"bitmaps {tuple(state.bitmaps.shape)} do not match "
+                         f"{cfg.max_slots} slots")
+    return HippoIndex(cfg=cfg, state=state, table=_table(arrays, cfg.page_card),
+                      device=dev)

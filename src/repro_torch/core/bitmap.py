@@ -12,6 +12,7 @@ the host (or ``.numpy().view(np.uint32)``) gives the reference's words back.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -89,3 +90,25 @@ def range_mask(num_bits: int, lo: torch.Tensor, hi: torch.Tensor
     bits = ((idx >= lo[..., None]) & (idx <= hi[..., None])
             & (idx < num_bits))
     return from_bool(bits)
+
+
+# ---------------------------------------------------------------------------
+# Serialization-boundary compression (host numpy, copied from the reference)
+# ---------------------------------------------------------------------------
+
+def rle_compress(words: np.ndarray) -> np.ndarray:
+    """Word-level RLE of a 1-D uint32 word array: interleaved (count, word)
+    pairs of the runs of identical words."""
+    words = np.asarray(words, dtype=np.uint32).ravel()
+    if words.size == 0:
+        return np.zeros((0,), dtype=np.uint32)
+    change = np.flatnonzero(np.diff(words)) + 1
+    starts = np.concatenate([[0], change])
+    ends = np.concatenate([change, [words.size]])
+    counts = (ends - starts).astype(np.uint32)
+    return np.stack([counts, words[starts]], axis=1).ravel()
+
+
+def compressed_nbytes(words: np.ndarray) -> int:
+    """Size in bytes of the RLE-compressed form (paper's storage metric)."""
+    return int(rle_compress(words).nbytes)

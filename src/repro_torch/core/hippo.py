@@ -1,14 +1,32 @@
-"""CREATE INDEX helpers shared by the index front ends (port of the
-sampling half of ``repro.core.hippo``; ``HippoIndex`` itself comes with a
-later slice, ROADMAP.md queue 1 item 11).
+"""High-level Hippo index API — the paper's CREATE INDEX / SELECT surface
+(§7.1) over the functional core (port of ``repro.core.hippo``, read side).
+
+    table = PagedTable.from_values(values, page_card=50)
+    idx = HippoIndex.create(table, resolution=400, density=0.2)  # the card
+    res = idx.search(Predicate.between(1000, 2000))
+
+``HippoIndex`` is the unsharded index: one ``HippoState`` over the whole
+table on ``device`` (None: the card). Its searches are the single-query
+``search`` (with the exact tuple mask), the dense batch ``search_batch`` and
+the gather paths ``search_compact``/``search_compact_batch``. Inserts and
+vacuum come with the maintenance slice (ROADMAP.md, queue 1 item 9) and
+raise ``NotImplementedError`` until then.
+
+The sampling helpers (``sample_keys``, ``sample_histogram``) and
+``MaintenanceCounters`` are shared with ``core.partition``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from repro_torch.core import histogram as hg
+from repro_torch.core import index as hix
+from repro_torch.core.predicate import (Predicate, intervals, to_bucket_bitmap,
+                                        to_bucket_bitmaps)
+from repro_torch.device import resolve_device
 from repro_torch.storage.table import PagedTable
 
 
@@ -40,3 +58,120 @@ class MaintenanceCounters:
     entries_created: int = 0
     vacuums: int = 0
     entries_resummarized: int = 0
+
+
+def _maintenance_not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue "
+                               f"1 item 9: maintenance)")
+
+
+@dataclass
+class HippoIndex:
+    """The unsharded index; every tensor lives on ``device``."""
+    cfg: hix.HippoConfig
+    state: hix.HippoState
+    table: PagedTable
+    device: torch.device
+    counters: MaintenanceCounters = field(default_factory=MaintenanceCounters)
+
+    # -- creation ------------------------------------------------------------
+
+    @staticmethod
+    def create(table: PagedTable, resolution: int = 400, density: float = 0.2,
+               max_slots: int | None = None, sample_size: int = 65536,
+               relocate_on_update: bool = True,
+               hist: hg.Histogram | None = None, device=None
+               ) -> "HippoIndex":
+        """CREATE INDEX ... USING hippo(attr) on ``device`` (None: the card):
+        the complete histogram from a table sample (§4.1), then Algorithm 2.
+        Defaults follow the reference."""
+        dev = resolve_device(device)
+        if max_slots is None:
+            # worst case one entry per page, plus an update budget
+            max_slots = int(table.num_pages * 1.25) + 1024
+        cfg = hix.HippoConfig(resolution=resolution, density=density,
+                              page_card=table.page_card, max_slots=max_slots,
+                              relocate_on_update=relocate_on_update)
+        if hist is None:
+            hist = sample_histogram(table, resolution, sample_size, device=dev)
+        hist = hg.Histogram(hist.bounds.to(dev))
+        state = hix.build(cfg, hist, table.device_keys(device=dev),
+                          table.device_valid(device=dev))
+        return HippoIndex(cfg=cfg, state=state, table=table, device=dev)
+
+    # -- query (Algorithm 1) ---------------------------------------------------
+
+    def _views(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return (self.table.device_keys(device=self.device),
+                self.table.device_valid(device=self.device))
+
+    def search(self, pred: Predicate) -> hix.SearchResult:
+        """One predicate: count, exact tuple mask, page mask and the paper's
+        I/O metrics (``core.index.search``)."""
+        qbm = to_bucket_bitmap(pred, self.state.histogram)
+        los, his = intervals([pred], self.device)
+        keys, valid = self._views()
+        return hix.search(self.state, qbm, keys, valid, los[0], his[0])
+
+    def search_batch(self, preds: list[Predicate]) -> hix.BatchSearchResult:
+        """Batched Algorithm 1 (``core.index.search_many``): row q equals
+        ``search(preds[q])``'s scalars."""
+        qbms = to_bucket_bitmaps(preds, self.state.histogram)
+        los, his = intervals(preds, self.device)
+        keys, valid = self._views()
+        return hix.search_many(self.state, qbms, keys, valid, los, his)
+
+    def search_compact(self, pred: Predicate, max_selected: int | None = None):
+        """Gather-path search. Returns (count, pages_inspected, truncated)."""
+        qbm = to_bucket_bitmap(pred, self.state.histogram)
+        if max_selected is None:
+            max_selected = self.table.num_pages
+        los, his = intervals([pred], self.device)
+        keys, valid = self._views()
+        return hix.search_compact(self.state, qbm, keys, valid, los[0],
+                                  his[0], max_selected=max_selected)
+
+    def search_compact_batch(self, preds: list[Predicate], *,
+                             max_selected: int, top_k: int = 0
+                             ) -> hix.CompactBatchResult:
+        """Batched gather path (``core.index.search_compact_many``); row ids
+        are global (``page_id * page_card + slot``)."""
+        qbms = to_bucket_bitmaps(preds, self.state.histogram)
+        los, his = intervals(preds, self.device)
+        keys, valid = self._views()
+        return hix.search_compact_many(self.state, qbms, keys, valid, los,
+                                       his, max_selected=max_selected,
+                                       top_k=top_k)
+
+    @property
+    def gather_cap(self) -> int:
+        """Slab width at which the gather path can never truncate."""
+        return max(self.table.num_pages, 1)
+
+    # -- maintenance (not ported yet) ----------------------------------------
+
+    def insert(self, value: float) -> None:
+        raise _maintenance_not_ported("HippoIndex.insert")
+
+    def insert_batch(self, values: np.ndarray) -> None:
+        raise _maintenance_not_ported("HippoIndex.insert_batch")
+
+    def vacuum(self) -> int:
+        raise _maintenance_not_ported("HippoIndex.vacuum")
+
+    # -- introspection -------------------------------------------------------
+
+    @property
+    def num_entries(self) -> int:
+        return int(self.state.num_entries)
+
+    def nbytes(self, compressed: bool = False) -> int:
+        return hix.index_nbytes(self.cfg, self.state, compressed=compressed)
+
+    def entries_host(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(starts, ends, bitmaps) of live entries in logical order; bitmaps
+        as uint32 words, as the reference returns them."""
+        order = self.state.sorted_order.cpu().numpy()[: self.num_entries]
+        return (self.state.starts.cpu().numpy()[order],
+                self.state.ends.cpu().numpy()[order],
+                self.state.bitmaps.cpu().numpy().view(np.uint32)[order])

@@ -71,17 +71,26 @@ def build(sample, resolution: int, device=None) -> Histogram:
 
 def build_uniform(lo: float, hi: float, resolution: int,
                   device=None) -> Histogram:
-    """Histogram for a known-uniform attribute: ``lo*(1-t) + hi*t`` at
-    ``t = i/H`` in float32, ending exactly at ``hi``.
+    """Histogram for a known-uniform attribute: ``H+1`` evenly spaced float32
+    bounds from ``lo`` to exactly ``hi``.
 
-    Bit-equal to the reference's ``jnp.linspace`` for ``lo = 0`` and a
-    power-of-two ``hi``; for other endpoints XLA's float32 arithmetic rounds
-    differently and a bound may differ in its last bit (ROADMAP.md, Faults).
-    The build path never calls it: ``create`` samples the table.
+    The steps replay what XLA:CPU makes of the reference's ``jnp.linspace``:
+    with ``c1 = f32(1/H)`` and ``c2 = f32(f32(hi) * c1)`` it computes
+    ``lo*(1 - i*c1) + i*c2`` (``hi*(i*c1)`` reassociated into ``i*c2``). For
+    ``lo = 0``, as every caller in the repository passes it, that is
+    ``f32(i*c2)`` and the bounds are bit-equal to the reference's. For
+    ``lo != 0`` XLA also contracts some lanes into FMAs, depending on how it
+    vectorized the loop, and a bound may differ in its last bit (ROADMAP.md,
+    Faults).
     """
     f32 = np.float32
-    t = np.arange(resolution, dtype=f32) * f32(1.0 / resolution)
-    body = (f32(lo) * (f32(1.0) - t) + f32(hi) * t).astype(f32)
+    c1 = f32(1.0 / resolution)
+    c2 = f32(f32(hi) * c1)
+    i = np.arange(resolution, dtype=f32)
+    if lo == 0:
+        body = (i * c2).astype(f32)
+    else:
+        body = (f32(lo) * (f32(1.0) - i * c1) + i * c2).astype(f32)
     bounds = np.concatenate([body, [f32(hi)]]).astype(f32)
     return Histogram(bounds=torch.from_numpy(bounds).to(resolve_device(device)))
 

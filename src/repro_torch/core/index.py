@@ -1,5 +1,5 @@
-"""Hippo index — structure, build and the compact batch search (port of
-``repro.core.index``, read side).
+"""Hippo index — structure, build and search (port of ``repro.core.index``,
+read side).
 
 State layout as in the reference, as tensors on one device; a sharded index
 stacks every field along a leading shard axis (``core.partition``):
@@ -11,14 +11,28 @@ stacks every field along a leading shard axis (``core.partition``):
   slot_live    (S,)   bool  false for slots abandoned by relocation
   num_entries, num_slots, summarized_until: 0-d i32
 
-The compact search runs the reference's ``search_compact_many`` pipeline with
-an explicit shard axis instead of a vmap: the joint-bucket filter
-(``kernels.batch_filter``), the entry -> page expansion, the batch union
-selected into a fixed-size slab of page ids, the fused inspect
-(``kernels.compact_inspect``, which reads pages through the selection and
-makes no slab copy) and, with ``top_k``, row ids derived from the kernel's
-per-(query, page) counts. Maintenance (inserts, vacuum, remaps) comes with a
-later slice (ROADMAP.md, queue 1 item 9).
+Algorithm 1 runs in three forms, each with an explicit shard axis where the
+reference vmaps:
+
+  search                the single query: joint-bucket filter
+                        (``kernels.bitmap_and``), entry -> page expansion,
+                        exact inspection with the tuple mask
+                        (``kernels.page_inspect``)
+  search_many[_sharded] the dense batch: the filter of every query
+                        (``kernels.batch_filter``), the expansion, and
+                        per-query counts over every selected page
+                        (``kernels.page_inspect.page_inspect_many``, which
+                        never forms the (Q, P, C) tuple mask)
+  search_compact_many[_sharded]
+                        the gather batch: the filter, the expansion, the
+                        batch union selected into a fixed-size slab of page
+                        ids, the fused inspect (``kernels.compact_inspect``,
+                        which reads pages through the selection and makes no
+                        slab copy) and, with ``top_k``, row ids derived from
+                        the kernel's per-(query, page) counts
+
+Maintenance (inserts, vacuum, remaps) and the writer's staged overlay come
+with later slices (ROADMAP.md, queue 1 items 9-10).
 """
 from __future__ import annotations
 
@@ -31,8 +45,10 @@ import torch
 from repro_torch.core import bitmap as bm
 from repro_torch.core import grouping
 from repro_torch.core.histogram import Histogram
-from repro_torch.kernels.batch_filter import batch_filter_sharded
+from repro_torch.kernels.batch_filter import batch_filter, batch_filter_sharded
+from repro_torch.kernels.bitmap_and import bitmap_and_any
 from repro_torch.kernels.compact_inspect import compact_inspect
+from repro_torch.kernels.page_inspect import page_inspect, page_inspect_many
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -64,6 +80,24 @@ class HippoState(NamedTuple):
     @property
     def histogram(self) -> Histogram:
         return Histogram(self.bounds)
+
+
+class SearchResult(NamedTuple):
+    """Result of the single-query ``search`` (fields as in the reference)."""
+    count: torch.Tensor            # i32 scalar — qualified tuple count
+    qualified: torch.Tensor        # (num_pages, page_card) bool
+    page_mask: torch.Tensor        # (num_pages,) bool
+    pages_inspected: torch.Tensor  # i32 scalar
+    entries_matched: torch.Tensor  # i32 scalar
+
+
+class BatchSearchResult(NamedTuple):
+    """Per-query results of ``search_many`` (query axis Q leads; no (Q, P, C)
+    tuple mask, as in the reference)."""
+    counts: torch.Tensor           # (Q,) i32
+    page_mask: torch.Tensor        # (Q, num_pages) bool
+    pages_inspected: torch.Tensor  # (Q,) i32
+    entries_matched: torch.Tensor  # (Q,) i32
 
 
 class CompactBatchResult(NamedTuple):
@@ -138,8 +172,18 @@ def stack_states(states: list[HippoState]) -> HippoState:
                         for i in range(len(HippoState._fields))))
 
 
+def _one_shard(state: HippoState) -> HippoState:
+    """An unsharded state as a stack of one shard (views, no copy)."""
+    return HippoState(*(f[None] for f in state))
+
+
+def shard_state(shards: HippoState, s: int) -> HippoState:
+    """Shard s of a stacked state (views, no copy)."""
+    return HippoState(*(f[s] for f in shards))
+
+
 # ---------------------------------------------------------------------------
-# Compact batch search (§3 Algorithm 1, gather-then-inspect)
+# Search (§3, Algorithm 1): the steps every form shares
 # ---------------------------------------------------------------------------
 
 def _live_slots(shards: HippoState) -> torch.Tensor:
@@ -179,6 +223,106 @@ def _expand_page_mask(shards: HippoState, match: torch.Tensor,
     owner = slot[:, None, :].expand(s, q, num_pages)
     return torch.gather(match, 2, owner) & in_range[:, None, :]
 
+
+def _pages_global(page_mask: torch.Tensor) -> torch.Tensor:
+    """(S, Q, PPS) per-shard page masks -> (Q, S*PPS) in global page order."""
+    s, q, pps = page_mask.shape
+    return page_mask.permute(1, 0, 2).reshape(q, s * pps)
+
+
+# ---------------------------------------------------------------------------
+# Single-query and dense batch search
+# ---------------------------------------------------------------------------
+
+def locate_slot(state: HippoState, page_id) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Binary search the sorted list for the entry owning ``page_id`` (§5.3).
+
+    Returns (physical_slot, logical_pos) as 0-d int32 tensors. The caller
+    guarantees the page is summarized (page_id <= summarized_until).
+    """
+    ls = _logical_starts(_one_shard(state))[0]
+    page = torch.as_tensor(page_id, dtype=torch.int32, device=ls.device)
+    pos = (torch.searchsorted(ls, page.reshape(1), right=True)[0] - 1
+           ).clamp(min=0).to(torch.int32)
+    return state.sorted_order[pos.long()], pos
+
+
+def search(state: HippoState, query_bitmap: torch.Tensor, keys: torch.Tensor,
+           valid: torch.Tensor, lo, hi) -> SearchResult:
+    """Algorithm 1 for one predicate: the joint-bucket filter of every entry
+    (``bitmap_and``, live mask fused), the expansion of matched entries to
+    pages, and the exact inspection of those pages (``page_inspect``, which
+    also gives the tuple mask). keys/valid: (P, C); query_bitmap (W,) int32;
+    lo/hi: the interval, float32 scalars. Every field equals the
+    reference's ``search`` bit for bit."""
+    num_pages = keys.shape[0]
+    match = bitmap_and_any(state.bitmaps, query_bitmap.contiguous(),
+                           _live_slots(_one_shard(state))[0])       # (E,)
+    page_mask = _expand_page_mask(_one_shard(state), match[None, None],
+                                  num_pages)[0, 0]                  # (P,)
+    qualified, counts = page_inspect(keys, valid, page_mask, lo, hi)
+    return SearchResult(
+        count=counts.sum(dtype=torch.int32),
+        qualified=qualified,
+        page_mask=page_mask,
+        pages_inspected=page_mask.sum(dtype=torch.int32),
+        entries_matched=match.sum(dtype=torch.int32),
+    )
+
+
+def search_many(state: HippoState, query_bitmaps: torch.Tensor,
+                keys: torch.Tensor, valid: torch.Tensor, los: torch.Tensor,
+                his: torch.Tensor) -> BatchSearchResult:
+    """Algorithm 1 over a batch of Q predicates: the filter of every query
+    against every entry (``batch_filter``), the expansion, and per-query
+    counts over each query's pages (``page_inspect_many``). query_bitmaps
+    (Q, W) int32; los/his (Q,) f32. Row q equals the reference's
+    ``search_many`` row, and the ``search`` scalars of predicate q."""
+    num_pages = keys.shape[0]
+    match = batch_filter(query_bitmaps.contiguous(), state.bitmaps,
+                         _live_slots(_one_shard(state))[0])         # (Q, E)
+    page_mask = _expand_page_mask(_one_shard(state), match[None],
+                                  num_pages)                        # (1, Q, P)
+    counts = page_inspect_many(keys[None], valid[None],
+                               page_mask.contiguous(), los, his)     # (1, Q)
+    return BatchSearchResult(
+        counts=counts[0],
+        page_mask=page_mask[0],
+        pages_inspected=page_mask[0].sum(dim=1, dtype=torch.int32),
+        entries_matched=match.sum(dim=1, dtype=torch.int32),
+    )
+
+
+def search_many_sharded(shards: HippoState, query_bitmaps: torch.Tensor,
+                        keys: torch.Tensor, valid: torch.Tensor,
+                        los: torch.Tensor, his: torch.Tensor
+                        ) -> BatchSearchResult:
+    """``search_many`` over S shards, count-reduced (the fused dense path).
+
+    query_bitmaps (S, Q, W), row s converted under shard s's bounds;
+    keys/valid (S, PPS, C) slabs with slab-local entry page ids. Counts and
+    match statistics sum over shards; ``page_mask`` is in global page order,
+    (Q, S*PPS), as in the reference.
+    """
+    num_pages = keys.shape[1]
+    match = batch_filter_sharded(query_bitmaps.contiguous(), shards.bitmaps,
+                                 _live_slots(shards))                # (S, Q, E)
+    page_mask = _expand_page_mask(shards, match, num_pages).contiguous()
+    counts = page_inspect_many(keys, valid, page_mask, los, his)     # (S, Q)
+    return BatchSearchResult(
+        counts=counts.sum(dim=0, dtype=torch.int32),
+        page_mask=_pages_global(page_mask),
+        pages_inspected=page_mask.sum(dim=2, dtype=torch.int32).sum(
+            dim=0, dtype=torch.int32),
+        entries_matched=match.sum(dim=2, dtype=torch.int32).sum(
+            dim=0, dtype=torch.int32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Compact batch search (gather-then-inspect)
+# ---------------------------------------------------------------------------
 
 def _select_union(union: torch.Tensor, max_selected: int) -> torch.Tensor:
     """(S, P) bool -> (S, M) int32: the first M set pages of each row in
@@ -302,5 +446,42 @@ def search_compact_many(state: HippoState, query_bitmaps: torch.Tensor,
     """The unsharded compact search: one shard of
     ``search_compact_many_sharded`` (query_bitmaps (Q, W), keys (P, C))."""
     return search_compact_many_sharded(
-        stack_states([state]), query_bitmaps[None], keys[None], valid[None],
+        _one_shard(state), query_bitmaps[None], keys[None], valid[None],
         los, his, max_selected=max_selected, top_k=top_k)
+
+
+def search_compact(state: HippoState, query_bitmap: torch.Tensor,
+                   keys: torch.Tensor, valid: torch.Tensor, lo, hi,
+                   max_selected: int):
+    """The gather path for one predicate: ``search_compact_many`` at Q=1.
+
+    Returns (count, pages_inspected, truncated) as 0-d tensors, equal to the
+    reference's ``search_compact``: with ``truncated`` set the count covers
+    only the first ``max_selected`` selected pages and the caller must fall
+    back to the dense path.
+    """
+    dev = keys.device
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=dev).reshape(1)
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=dev).reshape(1)
+    res = search_compact_many(state, query_bitmap[None], keys, valid, lo, hi,
+                              max_selected=max_selected)
+    return res.counts[0], res.pages_inspected[0], res.truncated[0]
+
+
+# ---------------------------------------------------------------------------
+# Storage accounting (paper's index-size metric)
+# ---------------------------------------------------------------------------
+
+def index_nbytes(cfg: HippoConfig, state: HippoState,
+                 compressed: bool = False) -> int:
+    """Bytes of live index storage: entries (bitmap + 2 page ids) + sorted
+    list + histogram, as the reference counts them. ``compressed=True``
+    reports the serialized RLE form of the bitmaps."""
+    e = int(state.num_entries)
+    live = state.slot_live.cpu().numpy()
+    words = state.bitmaps.cpu().numpy().view(np.uint32)[live]
+    if compressed:
+        bitmap_bytes = sum(bm.compressed_nbytes(row) for row in words)
+    else:
+        bitmap_bytes = words.nbytes
+    return bitmap_bytes + e * 8 + e * 4 + state.bounds.shape[0] * 4

@@ -9,9 +9,11 @@ predicates convert per bounds epoch into (S, Q, W) query bitmaps; all shards
 share one epoch until drift re-summarization is ported.
 
 Ported here: ``ShardSpec``, ``ShardedHippoState``, ``summary_of``,
-``build_sharded`` and the read surface of ``ShardedHippoIndex``. Inserts,
-vacuum, the writer attachment and the routed dense path come with later
-slices (ROADMAP.md, queue 1 items 9-11).
+``build_sharded`` and the read surface of ``ShardedHippoIndex``: the fused
+compact and dense batches, one shard's dense batch, and ``plan_batch``, the
+summary test of every query against every shard (partition pruning) that
+the engine's routed dispatch reads. Inserts, vacuum and the writer
+attachment come with later slices (ROADMAP.md, queue 1 items 9-10).
 """
 from __future__ import annotations
 
@@ -26,8 +28,10 @@ from repro_torch.core import histogram as hg
 from repro_torch.core import index as hix
 from repro_torch.core.hippo import MaintenanceCounters, sample_histogram
 from repro_torch.core.predicate import (Predicate, _nonempty, intervals,
-                                        interval_bitmaps_sharded)
+                                        interval_bitmaps_sharded,
+                                        to_bucket_bitmaps)
 from repro_torch.device import resolve_device
+from repro_torch.kernels.batch_filter import batch_filter_sharded
 from repro_torch.storage.table import PagedTable
 
 SUMMARY_POLICIES = ("equal_mass", "learned")
@@ -90,8 +94,10 @@ def build_sharded(cfg: hix.HippoConfig, spec: ShardSpec, hist: hg.Histogram,
 @dataclass
 class ShardedHippoIndex:
     """Shard-parallel Hippo index: the port's serving surface for
-    ``runtime.engine.QueryEngine`` (compact mode). ``cfg.max_slots`` is per
-    shard; every tensor lives on ``device``."""
+    ``runtime.engine.QueryEngine`` (compact mode, fused dense mode and the
+    routed dense dispatch through ``plan_batch``/
+    ``search_batch_shard_arrays``). ``cfg.max_slots`` is per shard; every
+    tensor lives on ``device``."""
     cfg: hix.HippoConfig
     spec: ShardSpec
     state: ShardedHippoState
@@ -178,6 +184,19 @@ class ShardedHippoIndex:
         return interval_bitmaps_sharded(self.state.shards.bounds, los, his,
                                         nonempty)
 
+    def search_batch(self, preds: list[Predicate]) -> hix.BatchSearchResult:
+        """Fused dense path (``core.index.search_many_sharded``): every shard
+        at once, counts reduced across the shard axis; ``page_mask`` in
+        global page order, trimmed to the table's pages. Counts equal the
+        unsharded ``HippoIndex.search_batch``'s."""
+        self._check_swap_guard()
+        qbms = self._query_bitmaps(preds)
+        los, his = intervals(preds, self.device)
+        keys, valid = self._slabs()
+        res = hix.search_many_sharded(self.state.shards, qbms, keys, valid,
+                                      los, his)
+        return res._replace(page_mask=res.page_mask[:, : self.table.num_pages])
+
     def search_compact_batch(self, preds: list[Predicate], *,
                              max_selected: int, top_k: int = 0
                              ) -> hix.CompactBatchResult:
@@ -199,7 +218,69 @@ class ShardedHippoIndex:
         """Per-shard slab width at which the gather path can never truncate."""
         return self.spec.pages_per_shard
 
+    def search_batch_shard(self, s: int, preds: list[Predicate]
+                           ) -> hix.BatchSearchResult:
+        """Algorithm 1 over shard s's slab only, the predicates converted
+        under shard s's bounds."""
+        qbms = to_bucket_bitmaps(preds, self.shard_histogram(s))
+        los, his = intervals(preds, self.device)
+        return self.search_batch_shard_arrays(s, qbms, los, his)
+
+    def search_batch_shard_arrays(self, s: int, qbms, los, his
+                                  ) -> hix.BatchSearchResult:
+        """Array form of ``search_batch_shard`` for callers that converted
+        the predicates once (``plan_batch``): qbms (Q, W) int32 packed words,
+        los/his (Q,) f32, on the index's device. Counts are index-only
+        (``core.index.search_many`` on shard s)."""
+        self._check_swap_guard()
+        keys, valid = self._slabs()
+        return hix.search_many(hix.shard_state(self.state.shards, s), qbms,
+                               keys[s], valid[s], los, his)
+
+    def plan_batch(self, preds: list[Predicate]
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              np.ndarray]:
+        """One predicate conversion (per bounds epoch) for a routed batch.
+
+        Returns (qbms (S, Q, W), los (Q,), his (Q,)) on the index's device
+        and the host bool matrix ``match`` (Q, S): the joint-bucket test of
+        query q (converted for shard s) against shard s's summary bitmap,
+        run through the sharded filter kernel with each summary as a
+        one-entry table. False entries are provably count-zero for that
+        (query, shard) pair, so a dispatcher may skip them. Only ``match``
+        comes to the host.
+        """
+        self._check_swap_guard()
+        qbms = self._query_bitmaps(preds)                       # (S, Q, W)
+        los, his = intervals(preds, self.device)
+        summaries = self.state.summaries[:, None, :].contiguous()  # (S, 1, W)
+        live = torch.ones(summaries.shape[:2], dtype=torch.bool,
+                          device=self.device)
+        match = batch_filter_sharded(qbms, summaries, live)[:, :, 0]  # (S, Q)
+        return qbms, los, his, match.T.cpu().numpy()
+
+    def shard_match_matrix(self, preds: list[Predicate]) -> np.ndarray:
+        """(Q, S) bool pruning matrix (see ``plan_batch``)."""
+        return self.plan_batch(preds)[3]
+
+    def search(self, pred: Predicate) -> hix.BatchSearchResult:
+        """Single-predicate convenience: a fused dense batch of one."""
+        return self.search_batch([pred])
+
+    def count(self, pred: Predicate) -> int:
+        return int(self.search_batch([pred]).counts[0])
+
     # -- introspection -------------------------------------------------------
+
+    def shard_histogram(self, s: int) -> hg.Histogram:
+        """Shard s's complete histogram (its bounds epoch)."""
+        return hg.Histogram(self.state.shards.bounds[s])
+
+    @property
+    def histogram(self) -> hg.Histogram:
+        """The histogram every shard shares while all sit on one bounds
+        epoch (always, until drift re-summarization is ported)."""
+        return self.shard_histogram(0)
 
     @property
     def num_shards(self) -> int:
@@ -217,3 +298,16 @@ class ShardedHippoIndex:
                         su + np.arange(self.spec.num_shards) *
                         self.spec.pages_per_shard, -1)
         return int(glob.max())
+
+    def shard_entry_counts(self) -> np.ndarray:
+        return self.state.shards.num_entries.cpu().numpy()
+
+    def nbytes(self, compressed: bool = False) -> int:
+        """Live index bytes summed over shards, plus the routing map and the
+        per-shard summary bitmaps (as the reference counts them)."""
+        total = sum(hix.index_nbytes(self.cfg,
+                                     hix.shard_state(self.state.shards, s),
+                                     compressed=compressed)
+                    for s in range(self.spec.num_shards))
+        total += self.spec.num_shards * 8
+        return total + self.state.summaries.numel() * 4

@@ -120,6 +120,12 @@ def interval_bitmaps_sharded(bounds: torch.Tensor, los: torch.Tensor,
     return per_row[inverse].contiguous()
 
 
+def to_bucket_bitmap(pred: Predicate, hist: Histogram) -> torch.Tensor:
+    """One predicate -> its (W,) packed bitmap of hit buckets (§3.1, Fig. 2):
+    ``to_bucket_bitmaps`` at Q=1, so the paths agree by construction."""
+    return to_bucket_bitmaps([pred], hist)[0]
+
+
 def to_bucket_bitmaps(preds: Sequence[Predicate], hist: Histogram
                       ) -> torch.Tensor:
     """Batched §3.1 conversion: Q predicates -> (Q, W) packed query bitmaps
@@ -131,3 +137,8 @@ def to_bucket_bitmaps(preds: Sequence[Predicate], hist: Histogram
     nonempty = torch.from_numpy(_nonempty(preds)).to(dev)
     return interval_bitmaps(hist.bounds, los, his, nonempty)
 
+
+def matches(pred: Predicate, values: torch.Tensor) -> torch.Tensor:
+    """Exact tuple-level predicate evaluation (float32 compares)."""
+    v = values.to(torch.float32)
+    return (v >= pred.lo) & (v <= pred.hi)

@@ -44,9 +44,19 @@ SIGNATURES = {
     # queries, entries, live, S, Q, E, W, out, stream
     "hippo_batch_filter_sharded": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32,
                                    _PTR, _PTR],
+    # queries, entries, live, Q, E, W, out, stream
+    "hippo_batch_filter": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR, _PTR],
     # keys, valid, sel, sel_mask, los, his, S, P, C, M, Q, counts, stream
     "hippo_compact_inspect": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32,
                               _I32, _I32, _I32, _PTR, _PTR],
+    # entries, query, live, E, W, out, stream
+    "hippo_bitmap_and_any": [_PTR, _PTR, _PTR, _I32, _I32, _PTR, _PTR],
+    # keys, valid, mask, interval, P, C, qual, counts, stream
+    "hippo_page_inspect": [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _PTR, _PTR,
+                           _PTR],
+    # keys, valid, page_mask, los, his, S, P, C, Q, counts, stream
+    "hippo_page_inspect_many": [_PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32,
+                                _I32, _I32, _PTR, _PTR],
 }
 
 
@@ -152,3 +162,26 @@ def check(err: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a pointer-sized int."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class Kernel:
+    """One C entry point of the library, with its launch counter.
+
+    ``launches`` counts the launches made through ``launch``; nothing else
+    touches it, so a run can show that its path went through the kernel.
+    ``source`` and ``replaces`` name the CUDA file and the TPU kernel
+    (file:line) it replaces.
+    """
+
+    def __init__(self, symbol: str, source: str, replaces: str):
+        self.symbol = symbol
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def launch(self, *args, on: torch.Tensor) -> None:
+        """Call the entry point with ``args`` on the current stream of
+        ``on``'s device; raise if the launch reported a CUDA error."""
+        err = getattr(library(), self.symbol)(*args, stream_of(on))
+        check(err, self.symbol)
+        self.launches += 1

@@ -1,1 +1,2 @@
-from repro_torch.kernels.batch_filter.ops import batch_filter_sharded  # noqa: F401
+from repro_torch.kernels.batch_filter.ops import (batch_filter,  # noqa: F401
+                                                  batch_filter_sharded)

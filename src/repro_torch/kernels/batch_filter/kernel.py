@@ -1,8 +1,9 @@
-"""ctypes binding of the CUDA sharded joint-bucket filter
-(``csrc/batch_filter.cu``).
+"""ctypes bindings of the CUDA joint-bucket filters (``csrc/batch_filter.cu``).
 
-``launches`` counts the kernel launches made through ``launch``; nothing
-else touches it, so a run can show that its path went through the kernel.
+Two entry points of one kernel, each with its own launch counter:
+``SHARDED`` (the TPU's ``batch_filter_sharded_kernel``, the compact path and
+the fused dense path) and ``UNSHARDED`` (the TPU's ``batch_filter_kernel``,
+``search_many``: the HippoIndex batch and every routed per-shard dispatch).
 """
 from __future__ import annotations
 
@@ -11,21 +12,26 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "src/repro_torch/csrc/batch_filter.cu"
-REPLACES = "src/repro/kernels/batch_filter/kernel.py:59"
 
-launches = 0
+SHARDED = _build.Kernel("hippo_batch_filter_sharded", SOURCE,
+                        "src/repro/kernels/batch_filter/kernel.py:59")
+UNSHARDED = _build.Kernel("hippo_batch_filter", SOURCE,
+                          "src/repro/kernels/batch_filter/kernel.py:32")
+
+
+def launch_sharded(queries: torch.Tensor, entries: torch.Tensor,
+                   live: torch.Tensor, out: torch.Tensor) -> None:
+    """queries (S, Q, W) int32, entries (S, E, W) int32, live (S, E) bool,
+    out (S, Q, E) bool, all contiguous on one CUDA device (``ops`` checks)."""
+    s, q, w = queries.shape
+    SHARDED.launch(queries.data_ptr(), entries.data_ptr(), live.data_ptr(),
+                   s, q, entries.shape[1], w, out.data_ptr(), on=queries)
 
 
 def launch(queries: torch.Tensor, entries: torch.Tensor, live: torch.Tensor,
            out: torch.Tensor) -> None:
-    """queries (S, Q, W) int32, entries (S, E, W) int32, live (S, E) bool,
-    out (S, Q, E) bool, all contiguous on one CUDA device (``ops`` checks)."""
-    global launches
-    s, q, w = queries.shape
-    e = entries.shape[1]
-    lib = _build.library()
-    err = lib.hippo_batch_filter_sharded(
-        queries.data_ptr(), entries.data_ptr(), live.data_ptr(), s, q, e, w,
-        out.data_ptr(), _build.stream_of(queries))
-    _build.check(err, "batch_filter_sharded")
-    launches += 1
+    """queries (Q, W) int32, entries (E, W) int32, live (E,) bool, out (Q, E)
+    bool, all contiguous on one CUDA device (``ops`` checks)."""
+    q, w = queries.shape
+    UNSHARDED.launch(queries.data_ptr(), entries.data_ptr(), live.data_ptr(),
+                     q, entries.shape[0], w, out.data_ptr(), on=queries)

@@ -1,8 +1,9 @@
-"""Plain PyTorch version of the sharded joint-bucket filter.
+"""Plain PyTorch versions of the joint-bucket filters.
 
 ``out[s, q, e] = live[s, e] & any_w(queries[s, q, w] & entries[s, e, w] !=
-0)``, a few queries at a time so the (S, q, E, W) AND stays small. It is the
-CPU path of ``ops.batch_filter_sharded`` and the CUDA kernel's oracle.
+0)``, a few queries at a time so the (S, q, E, W) AND stays small;
+``batch_filter_ref`` is the same at S=1 without the shard axis. They are the
+CPU paths of ``ops`` and the CUDA kernel's oracles.
 """
 from __future__ import annotations
 
@@ -23,3 +24,11 @@ def batch_filter_sharded_ref(queries: torch.Tensor, entries: torch.Tensor,
         joint = (queries[:, i:i + step, None, :] & entries[:, None, :, :]) != 0
         out[:, i:i + step] = joint.any(dim=-1) & live[:, None, :]
     return out
+
+
+def batch_filter_ref(queries: torch.Tensor, entries: torch.Tensor,
+                     live: torch.Tensor) -> torch.Tensor:
+    """queries (Q, W) int32; entries (E, W) int32; live (E,) bool -> (Q, E)
+    bool."""
+    return batch_filter_sharded_ref(queries[None], entries[None],
+                                    live[None])[0]

@@ -1,5 +1,5 @@
 """Batched multi-predicate query engine — the serving front (port of
-``repro.runtime.engine``, compact mode).
+``repro.runtime.engine``, read side).
 
 Queries arrive as ``Predicate``s, are admitted into a fixed number of slots,
 execute together, and finished queries free their slot for the next queued
@@ -7,22 +7,34 @@ request. Free slots in a partly filled batch are padded with the empty
 predicate (lo > hi), which matches nothing and is counted in
 ``EngineStats.pad_slots``, never as served work.
 
-Compact mode (the default, via ``auto``) runs each batch through the gather
-path (``search_compact_batch``) with the reference's ladder, so every ticket
-and every compact counter equals the reference's for the same stream:
+The reference's mode ladder, with every ticket and every counter equal to
+the reference's for the same stream:
 
-  compact    run at the current slab bucket (a power of two adapted from the
-             batches seen so far)
-  widen      a batch whose union overflows the bucket raises it to the next
-             power of two (capped at the never-truncating ``gather_cap``)
-  fallback   queries whose own pages overflowed this batch's slab re-run at
-             ``gather_cap``, so results are never silently short
+  compact (the default via ``auto``) — each batch runs through the gather
+             path (``search_compact_batch``) of a ``HippoIndex`` or a
+             ``ShardedHippoIndex``:
+    compact    run at the current slab bucket (a power of two adapted from
+               the batches seen so far)
+    widen      a batch whose union overflows the bucket raises it to the
+               next power of two (capped at the never-truncating
+               ``gather_cap``)
+    fallback   queries whose own pages overflowed this batch's slab re-run
+               at ``gather_cap``, so results are never silently short
+  dense — the full-table path. Fused: one ``search_batch`` of the whole
+             batch width (a ``HippoIndex``, or a ``ShardedHippoIndex`` with
+             ``sharded=False``). Routed (``sharded`` left None on an index
+             with ``plan_batch``, or ``sharded=True``; ``auto`` with
+             ``sharded=True`` picks it): the batch is tested against every
+             shard's summary bitmap, each shard receives one dispatch of only
+             the queries that can match it, padded to a power-of-two width
+             of at least ``_SHARD_BUCKET_MIN``, shards no query matches are
+             skipped (``EngineStats.shards_pruned``), and counts sum over the
+             dispatched shards.
 
-Not ported yet, and refused with ``NotImplementedError``: dense mode and the
-routed sharded dispatch (ROADMAP.md queue 1 item 11), writes, deletes, drains
-and drift re-summarization through a writer (items 9-10), and durable
-storage (item 13). Reads never touch a writer, so the read stream's tickets
-and stats are unaffected.
+Not ported yet, and refused with ``NotImplementedError``: writes, deletes,
+drains and drift re-summarization through a writer (ROADMAP.md queue 1
+items 9-10), and durable storage (item 13). Reads never touch a writer, so
+the read stream's tickets and stats are unaffected.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from repro_torch.core.partition import SUMMARY_POLICIES
 from repro_torch.core.predicate import Predicate
@@ -76,7 +89,9 @@ class QueryTicket:
 @dataclass
 class EngineStats:
     """The reference's ``EngineStats`` fields; the writer, persistence and
-    drift fields stay 0 until those slices land."""
+    drift fields stay 0 until those slices land. In routed dense mode the
+    slot counters count per-shard dispatch widths (a query sent to several
+    shards fills one slot in each)."""
     submitted: int = 0
     served: int = 0
     batches: int = 0
@@ -122,6 +137,11 @@ class EngineStats:
         total = self.slots_filled + self.pad_slots
         return self.slots_filled / total if total else 0.0
 
+    def shard_occupancy(self) -> dict[int, float]:
+        """Per-shard occupancy of the routed dispatch."""
+        return {s: self.shard_queries[s] / self.shard_slots[s]
+                for s in sorted(self.shard_slots) if self.shard_slots[s]}
+
     @property
     def gather_occupancy(self) -> float:
         """Fraction of dispatched gather-slab capacity holding a selected
@@ -142,12 +162,13 @@ class EngineStats:
 
 
 class QueryEngine:
-    """Lock-step batched query executor with slot recycling (compact mode).
+    """Lock-step batched query executor with slot recycling.
 
-    Takes the reference's constructor and validates it the same way;
-    ``top_k`` makes every ticket carry up to ``top_k`` qualifying global row
-    ids, and ``compact_bucket`` seeds the adaptive slab bucket. The index's
-    device is the engine's: a ``ShardedHippoIndex`` created with
+    Takes the reference's constructor and validates it the same way.
+    ``mode`` and ``sharded`` pick the path (see the module docstring);
+    ``top_k`` (compact mode only) makes every ticket carry up to ``top_k``
+    qualifying global row ids, and ``compact_bucket`` seeds the adaptive slab
+    bucket. The index's device is the engine's: an index created with
     ``device=None`` serves on the card.
     """
 
@@ -167,22 +188,31 @@ class QueryEngine:
             raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
         if mode == "auto":
             mode = "dense" if sharded is True else "compact"
-        if mode == "dense":
-            raise _not_ported("mode='dense' (and sharded=True routing)",
-                              "item 11")
-        if sharded is True:
-            raise ValueError(
-                "sharded=True selects dense mode's routed dispatch; "
-                "compact mode runs the fused sharded gather — pass "
-                "mode='dense' for routing or drop sharded=True")
-        if not hasattr(index, "search_compact_batch"):
-            raise ValueError(
-                "mode='compact' needs an index with the gather surface "
-                "(search_compact_batch/gather_cap); got "
-                f"{type(index).__name__}")
+        if mode == "compact":
+            if sharded is True:
+                raise ValueError(
+                    "sharded=True selects dense mode's routed dispatch; "
+                    "compact mode runs the fused sharded gather — pass "
+                    "mode='dense' for routing or drop sharded=True")
+            if not hasattr(index, "search_compact_batch"):
+                raise ValueError(
+                    "mode='compact' needs an index with the gather surface "
+                    "(search_compact_batch/gather_cap); got "
+                    f"{type(index).__name__}")
+            sharded = False
+        else:
+            if sharded is None:
+                sharded = hasattr(index, "plan_batch")
+            if sharded and not hasattr(index, "plan_batch"):
+                raise ValueError("sharded=True needs a ShardedHippoIndex-style "
+                                 "index (plan_batch/search_batch_shard_arrays)")
         self.mode = mode
+        self.sharded = sharded
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
+        if top_k and mode != "compact":
+            raise ValueError("row-id payloads (top_k > 0) ride the gather "
+                             "path; they need mode='compact'")
         self.top_k = top_k
         if compact_bucket is not None and compact_bucket < 1:
             raise ValueError(f"compact_bucket must be >= 1, got {compact_bucket}")
@@ -193,6 +223,12 @@ class QueryEngine:
         if drain_policy is not None and drain_policy not in _DRAIN_POLICIES:
             raise ValueError(f"drain_policy must be one of {_DRAIN_POLICIES}, "
                              f"got {drain_policy!r}")
+        if drain_policy not in (None, "sync") \
+                and not hasattr(index, "plan_batch"):
+            raise ValueError(
+                "async drain policies need a ShardedHippoIndex-style index "
+                "(per-shard queues route by ShardSpec); use "
+                "drain_policy='sync' for an unsharded index")
         if writer is not None:
             raise _not_ported("the maintenance writer", "item 10")
         if drift_threshold is not None and not 0.0 < drift_threshold <= 1.0:
@@ -243,13 +279,20 @@ class QueryEngine:
     # -- execution ------------------------------------------------------------
 
     def run_batch(self) -> list[QueryTicket]:
-        """Admit queued queries into free slots and execute one compact
-        batch. Returns the tickets retired by this batch."""
+        """Admit queued queries into free slots and execute one batch (in
+        routed mode, one dispatch per matched shard). Returns the tickets
+        retired by this batch."""
         self._admit()
         active = [i for i, t in enumerate(self.slots) if t is not None]
         if not active:
             return []
-        counts, inspected, matched, row_ids = self._execute_compact(active)
+        row_ids = None
+        if self.mode == "compact":
+            counts, inspected, matched, row_ids = self._execute_compact(active)
+        elif self.sharded:
+            counts, inspected, matched = self._execute_sharded(active)
+        else:
+            counts, inspected, matched = self._execute_dense(active)
         finished = []
         for k, i in enumerate(active):
             t = self.slots[i]
@@ -263,10 +306,68 @@ class QueryEngine:
             finished.append(t)
             self.slots[i] = None          # recycle the slot
         self.stats.batches += 1
-        self.stats.slots_filled += len(active)
-        self.stats.pad_slots += self.batch - len(active)
+        if not self.sharded:
+            # compact and fused dense modes dispatch the full batch width;
+            # the routed dispatch accounts per shard in _execute_sharded
+            self.stats.slots_filled += len(active)
+            self.stats.pad_slots += self.batch - len(active)
         self.stats.served += len(finished)
         return finished
+
+    def _execute_dense(self, active: list[int]) -> tuple:
+        """One full-width dense batch; pads fill the free slots."""
+        preds = [t.pred if t is not None else _EMPTY for t in self.slots]
+        res = self.index.search_batch(preds)
+        out = torch.stack([res.counts, res.pages_inspected,
+                           res.entries_matched]).cpu().numpy()
+        return out[0][active], out[1][active], out[2][active]
+
+    def _execute_sharded(self, active: list[int]) -> tuple:
+        """Routed dispatch with summary pruning and count-reduce.
+
+        The batch converts once per bounds epoch (``plan_batch``, (S, Q, W)
+        on the device); shard s then runs ``search_batch_shard_arrays`` over
+        only the queries whose bitmaps share a bucket with its summary,
+        padded with zero bitmaps and empty (lo=1, hi=0) intervals to a
+        power-of-two width of at least ``_SHARD_BUCKET_MIN``. A pruned
+        (query, shard) pair is provably count-zero, and shards partition the
+        pages, so the per-query sums are exact.
+        """
+        preds = [self.slots[i].pred for i in active]
+        qbms, los, his, match = self.index.plan_batch(preds)
+        a = len(active)
+        counts = np.zeros((a,), np.int64)
+        inspected = np.zeros((a,), np.int64)
+        matched = np.zeros((a,), np.int64)
+        st = self.stats
+        for s in range(self.index.num_shards):
+            hit = np.flatnonzero(match[:, s])
+            n = int(hit.size)
+            if n == 0:
+                st.shards_pruned += 1
+                continue
+            width = _pow2_at_least(max(n, _SHARD_BUCKET_MIN))
+            idx = torch.from_numpy(hit).to(qbms.device)
+            qb = qbms.new_zeros((width, qbms.shape[2]))
+            qb[:n] = qbms[s, idx]                 # shard s's epoch conversion
+            lo = torch.full((width,), _EMPTY.lo, dtype=torch.float32,
+                            device=los.device)
+            hi = torch.full((width,), _EMPTY.hi, dtype=torch.float32,
+                            device=his.device)
+            lo[:n] = los[idx]
+            hi[:n] = his[idx]
+            res = self.index.search_batch_shard_arrays(s, qb, lo, hi)
+            out = torch.stack([res.counts, res.pages_inspected,
+                               res.entries_matched])[:, :n].cpu().numpy()
+            counts[hit] += out[0]
+            inspected[hit] += out[1]
+            matched[hit] += out[2]
+            st.shard_dispatches += 1
+            st.slots_filled += n
+            st.pad_slots += width - n
+            st.shard_queries[s] = st.shard_queries.get(s, 0) + n
+            st.shard_slots[s] = st.shard_slots.get(s, 0) + width
+        return counts, inspected, matched
 
     def _execute_compact(self, active: list[int]) -> tuple:
         """The compact ladder: gather-path batch at the current slab bucket,

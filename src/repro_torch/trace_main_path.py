@@ -1,14 +1,16 @@
-"""Where a compact batch's time goes: a ``torch.profiler`` trace of the main
-path on the card.
+"""Where a batch's time goes: a ``torch.profiler`` trace of the read paths
+on the card.
 
     PYTHONPATH=src python -m repro_torch.trace_main_path [--rows N] [--seed S]
 
-Builds the index ``chip_smoke.py`` builds (TPC-H SF10 ``l_shipdate`` by
-default, 4 shards, H=400, D=0.2), serves one warm-up batch per engine so the
-slab bucket has widened, then profiles one steady batch of 64 predicates
-without row ids and one with ``top_k=32``. Prints, per batch, the wall time,
-the device-busy share of that window (summed kernel time over wall time)
-and the operators by device time.
+Builds the sharded index ``chip_smoke.py`` builds (TPC-H SF10
+``l_shipdate`` by default, 4 shards, H=400, D=0.2) and an unsharded
+``HippoIndex`` over the same column, serves one warm-up batch per engine (so
+the compact slab bucket has widened), then profiles one steady batch of 64
+predicates per engine: compact without row ids and with ``top_k=32``, dense
+on the HippoIndex, and routed and fused dense on the sharded index. Prints,
+per batch, the wall time, the device-busy share of that window (summed
+kernel time over wall time) and the operators by device time.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.core.hippo import HippoIndex
 from repro_torch.core.partition import ShardedHippoIndex
 from repro_torch.core.predicate import Predicate
 from repro_torch.runtime.engine import QueryEngine
@@ -54,10 +57,16 @@ def main() -> None:
         rng.integers(0, SHIPDATE_DAYS, args.rows).astype(np.float32), 50)
     sidx = ShardedHippoIndex.create(table, num_shards=4, resolution=400,
                                     density=0.2)
+    hidx = HippoIndex.create(table, resolution=400, density=0.2)
     print(f"{torch.cuda.get_device_name(0)}: {args.rows:,} rows, "
           f"{table.num_pages:,} pages")
-    for top_k in (0, 32):
-        eng = QueryEngine(sidx, batch=64, top_k=top_k)
+    for name, idx, kw in (("compact top_k=0", sidx, {}),
+                          ("compact top_k=32", sidx, {"top_k": 32}),
+                          ("dense HippoIndex", hidx, {"mode": "dense"}),
+                          ("dense routed", sidx, {"mode": "dense"}),
+                          ("dense fused", sidx, {"mode": "dense",
+                                                 "sharded": False})):
+        eng = QueryEngine(idx, batch=64, **kw)
         for p in _preds(rng, 64):
             eng.submit(p)
         eng.run_batch()                     # warm-up: falls back and widens
@@ -72,7 +81,7 @@ def main() -> None:
             wall_us = (time.perf_counter() - t0) * 1e6
         rows = _kernels(prof)
         busy_us = sum(e.self_device_time_total for e in rows)
-        print(f"top_k={top_k}: batch wall {wall_us / 1e3:.3f} ms, device busy "
+        print(f"{name}: batch wall {wall_us / 1e3:.3f} ms, device busy "
               f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%} of the window)")
         for e in rows[:15]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} "

@@ -13,12 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.hippo import HippoIndex
 from repro_torch.core.partition import ShardedHippoIndex
 from repro_torch.core.predicate import Predicate
 from repro_torch.kernels import _build
 from repro_torch.kernels.batch_filter import ops as bf_ops
+from repro_torch.kernels.bitmap_and import ops as ba_ops
 from repro_torch.kernels.bucketize import ops as bk_ops
 from repro_torch.kernels.compact_inspect import ops as ci_ops
+from repro_torch.kernels.page_inspect import ops as pi_ops
 from repro_torch.runtime.engine import QueryEngine
 from repro_torch.storage.table import PagedTable
 
@@ -86,6 +89,79 @@ def test_bucketize_kernel_equals_plain(h):
 
 
 @needs_cuda
+@pytest.mark.parametrize("q,e,w", [(70, 300, 13), (1, 1, 2), (65, 129, 32),
+                                   (64, 1024, 13)])
+def test_batch_filter_unsharded_kernel_equals_plain(q, e, w):
+    rng = np.random.default_rng(q * 1000 + e)
+    qb = _words(rng, (q, w), 0.02)
+    qb[::7] = 0
+    qb[1::5, -1] |= BIT31
+    ent = _words(rng, (e, w), 0.05)
+    ent[::3, -1] = BIT31
+    live = torch.from_numpy(rng.random(e) < 0.8)
+    want = bf_ops.batch_filter(qb, ent, live)
+    got = bf_ops.batch_filter(qb.cuda(), ent.cuda(), live.cuda())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("e,w", [(1, 1), (255, 13), (257, 13), (3000, 32),
+                                 (1000, 2)])
+def test_bitmap_and_kernel_equals_plain(e, w):
+    rng = np.random.default_rng(e + w)
+    ent = _words(rng, (e, w), 0.05)
+    ent[::3, -1] = BIT31
+    live = torch.from_numpy(rng.random(e) < 0.8)
+    for query in (_words(rng, (w,), 0.05), torch.zeros(w, dtype=torch.int32),
+                  torch.full((w,), BIT31, dtype=torch.int32)):
+        want = ba_ops.bitmap_and_any(ent, query, live)
+        got = ba_ops.bitmap_and_any(ent.cuda(), query.cuda(), live.cuda())
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+def _table(rng, shape):
+    keys = torch.from_numpy(rng.integers(0, 100, shape).astype(np.float32))
+    valid = torch.from_numpy(rng.random(shape) < 0.9)
+    return keys, valid
+
+
+@needs_cuda
+@pytest.mark.parametrize("p,c", [(1, 50), (63, 50), (65, 7), (300, 50),
+                                 (129, 1)])
+def test_page_inspect_kernel_equals_plain(p, c):
+    rng = np.random.default_rng(p * 100 + c)
+    keys, valid = _table(rng, (p, c))
+    mask = torch.from_numpy(rng.random(p) < 0.6)
+    for lo, hi in ((10.0, 40.0), (50.0, 50.0), (30.0, 20.0), (-1.0, 200.0)):
+        want = pi_ops.page_inspect(keys, valid, mask, lo, hi)
+        got = pi_ops.page_inspect(keys.cuda(), valid.cuda(), mask.cuda(),
+                                  torch.tensor(lo).cuda(), hi)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+@needs_cuda
+@pytest.mark.parametrize("s,p,c,q", [(1, 40, 50, 1), (3, 70, 50, 65),
+                                     (1, 5, 7, 3), (2, 300, 50, 64),
+                                     (4, 2049, 1, 9), (2, 3, 5, 4100)])
+def test_page_inspect_many_kernel_equals_plain(s, p, c, q):
+    rng = np.random.default_rng(s * 1000 + p + q)
+    keys, valid = _table(rng, (s, p, c))
+    page_mask = torch.from_numpy(rng.random((s, q, p)) < 0.7)
+    lo = rng.integers(0, 100, q).astype(np.float32)
+    hi = lo + rng.integers(-5, 30, q).astype(np.float32)   # some empty
+    los, his = torch.from_numpy(lo), torch.from_numpy(hi)
+    want = pi_ops.page_inspect_many(keys, valid, page_mask, los, his)
+    got = pi_ops.page_inspect_many(*(t.cuda() for t in (keys, valid,
+                                                        page_mask, los, his)))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@needs_cuda
 def test_engine_on_card_equals_engine_on_cpu():
     rng = np.random.default_rng(3)
     vals = rng.integers(0, 2555, 40_000).astype(np.float32)
@@ -103,6 +179,34 @@ def test_engine_on_card_equals_engine_on_cpu():
                     (eng.stats.compact_fallbacks, eng.stats.gather_union_pages,
                      eng.stats.gather_slab_pages))
     assert out["cuda"] == out["cpu"]
+
+
+@needs_cuda
+def test_dense_engines_on_card_equal_engines_on_cpu():
+    rng = np.random.default_rng(4)
+    vals = np.sort(rng.integers(0, 2555, 40_000)).astype(np.float32)
+    preds = [Predicate.between(float(lo), float(lo + w))
+             for lo, w in zip(rng.integers(0, 2400, 90), [0, 9, 99] * 30)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        hidx = HippoIndex.create(PagedTable.from_values(vals, 50), device=dev)
+        sidx = ShardedHippoIndex.create(PagedTable.from_values(vals, 50),
+                                        num_shards=4, device=dev)
+        runs = []
+        for idx, kw in ((hidx, {}), (sidx, {}), (sidx, {"sharded": False})):
+            eng = QueryEngine(idx, batch=32, mode="dense", **kw)
+            tickets = [eng.submit(p) for p in preds]
+            eng.drain()
+            runs.append(([(t.count, t.pages_inspected, t.entries_matched)
+                          for t in tickets],
+                         (eng.stats.shard_dispatches, eng.stats.shards_pruned,
+                          eng.stats.slots_filled, eng.stats.pad_slots)))
+        res = hidx.search(preds[1])
+        runs.append((int(res.count), res.qualified.cpu().numpy().tolist(),
+                     res.page_mask.cpu().numpy().tolist()))
+        out[dev] = runs
+    assert out["cuda"] == out["cpu"]
+    assert out["cpu"][1][1][1] > 0          # the routed run pruned shards
 
 
 @needs_cuda
@@ -130,4 +234,5 @@ def test_sources_hash_changes_with_flags(monkeypatch):
     monkeypatch.setattr(_build, "COMPILE_FLAGS", [*_build.COMPILE_FLAGS, "-g"])
     assert _build.source_hash() != before
     assert [p.name for p in _build.sources()] == [
-        "batch_filter.cu", "bucketize.cu", "compact_inspect.cu"]
+        "batch_filter.cu", "bitmap_and.cu", "bucketize.cu",
+        "compact_inspect.cu", "page_inspect.cu"]

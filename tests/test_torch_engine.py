@@ -99,8 +99,7 @@ def test_constructor_refusals_match_reference(pair, kwargs):
 
 def test_unported_surfaces_refuse_loudly(pair, tmp_path):
     _, t = pair
-    for kwargs in ({"mode": "dense"}, {"sharded": True},
-                   {"storage_dir": tmp_path}, {"writer": object()}):
+    for kwargs in ({"storage_dir": tmp_path}, {"writer": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(t, **kwargs)
     eng = TEngine(t)

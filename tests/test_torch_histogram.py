@@ -71,10 +71,14 @@ def test_hit_bucket_range_matches_reference():
         assert thg.hit_bucket_range(hist_t, lo, hi) == ref, (lo, hi)
 
 
-@pytest.mark.parametrize("hi,h", [(1.0, 400), (1.0, 64), (1024.0, 400)])
+@pytest.mark.parametrize("hi,h", [(1.0, 400), (1.0, 64), (1024.0, 400)]
+                         + [(hi, h) for hi in (100.0, 300.0, 2555.0, 200000.0,
+                                               7.0, 9999.0, 123456.7)
+                            for h in (1, 3, 7, 64, 100, 255, 400, 1000)])
 def test_build_uniform_unit_steps_bit_equal(hi, h):
-    # lo = 0 and a power-of-two hi: the scaling is exact, so the steps decide
-    # (other endpoints differ in the last bit: ROADMAP.md, Faults)
+    # lo = 0, as every caller passes it: the port replays XLA's linspace
+    # steps, f32(i * f32(f32(hi) * f32(1/H))), and ends exactly at hi
+    # (lo != 0 may differ in the last bit: ROADMAP.md, Faults)
     ref = np.asarray(jhg.build_uniform(0.0, hi, h).bounds)
     got = thg.build_uniform(0.0, hi, h, device="cpu").bounds.numpy()
     assert np.array_equal(got.view(np.int32), ref.view(np.int32))

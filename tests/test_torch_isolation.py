@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.hippo import HippoIndex
 from repro_torch.core.partition import ShardedHippoIndex
 from repro_torch.core.predicate import intervals
 from repro_torch.device import resolve_device
@@ -89,6 +90,8 @@ def test_device_none_raises_without_cuda():
         table.device_keys()
     with pytest.raises(RuntimeError, match="CUDA"):
         ShardedHippoIndex.create(table, num_shards=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HippoIndex.create(table)
     with pytest.raises(RuntimeError, match="CUDA"):
         intervals([], None)
     assert resolve_device("cpu") == torch.device("cpu")
