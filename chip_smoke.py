@@ -38,6 +38,12 @@ each of which exits nonzero on failure:
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
+
+``--baseline-csrc DIR`` also builds the CUDA sources in DIR (an earlier
+design of ``src/repro_torch/csrc``, with the same C entry points) and times
+its ``compact_inspect`` and ``page_inspect_many`` against the package's at
+the main paths' shapes, in turns (baseline, package, package, baseline),
+after checking that the two give the same counts.
 """
 from __future__ import annotations
 
@@ -127,6 +133,8 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=SF10_ROWS,
                     help="l_shipdate rows (default: TPC-H SF10)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--baseline-csrc", type=Path, default=None,
+                    help="CUDA sources of an earlier design to time against")
     args = ap.parse_args()
 
     import torch
@@ -394,6 +402,18 @@ def main() -> int:
     ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev)
     print("kernels equal their plain versions at the main paths' shapes and "
           "at ragged edges")
+    if args.baseline_csrc is not None:
+        b_args = (keys, valid, sel, sel_mask, blo, bhi)
+        e_args = (k1, v1, hmask, blo, bhi)
+        compare_designs(torch, _build, args.baseline_csrc, {
+            "compact_inspect": (
+                lambda: ci_ops.compact_inspect(*b_args),
+                lambda lib: baseline_compact_inspect(torch, _build, lib,
+                                                     *b_args)),
+            "page_inspect_many": (
+                lambda: pi_ops.page_inspect_many(*e_args),
+                lambda lib: baseline_page_inspect_many(torch, _build, lib,
+                                                       *e_args))})
 
     # each kernel's launches come from the run of the path it was ported for
     path_launches = {**{n: launches[n] for n in MAIN_KERNELS},
@@ -414,6 +434,48 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def baseline_compact_inspect(torch, _build, lib, keys, valid, sel, sel_mask,
+                             los, his):
+    s, p, c = keys.shape
+    q, m = sel_mask.shape[1], sel.shape[1]
+    out = torch.empty((s, q, m), dtype=torch.int32, device=keys.device)
+    _build.check(lib.hippo_compact_inspect(
+        keys.data_ptr(), valid.data_ptr(), sel.data_ptr(), sel_mask.data_ptr(),
+        los.data_ptr(), his.data_ptr(), s, p, c, m, q, out.data_ptr(),
+        _build.stream_of(keys)), "baseline hippo_compact_inspect")
+    return out
+
+
+def baseline_page_inspect_many(torch, _build, lib, keys, valid, page_mask,
+                               los, his):
+    s, p, c = keys.shape
+    q = page_mask.shape[1]
+    out = torch.zeros((s, q), dtype=torch.int32, device=keys.device)
+    _build.check(lib.hippo_page_inspect_many(
+        keys.data_ptr(), valid.data_ptr(), page_mask.data_ptr(),
+        los.data_ptr(), his.data_ptr(), s, p, c, q, out.data_ptr(),
+        _build.stream_of(keys)), "baseline hippo_page_inspect_many")
+    return out
+
+
+def compare_designs(torch, _build, csrc: Path, cases: dict) -> None:
+    """Build the sources in ``csrc`` and time each case's baseline against
+    the package's kernel in turns: baseline, package, package, baseline."""
+    t0 = time.perf_counter()
+    lib = _build.load(_build.build(csrc.resolve()))
+    print(f"baseline kernels from {csrc} built in "
+          f"{time.perf_counter() - t0:.3f} s")
+    out = {}
+    for name, (new, old) in cases.items():
+        exact(torch, f"{name} against the baseline design", new(), old(lib))
+        turns = [time_ms(torch, lambda: old(lib), 20), time_ms(torch, new, 20),
+                 time_ms(torch, new, 20), time_ms(torch, lambda: old(lib), 20)]
+        out[name] = {"baseline_ms": [turns[0], turns[3]],
+                     "ms": [turns[1], turns[2]],
+                     "speedup": (turns[0] + turns[3]) / (turns[1] + turns[2])}
+    print("designs in turns: " + json.dumps(out))
 
 
 def serve_stream(torch, QueryEngine, idx, preds, **kw) -> tuple:
@@ -530,12 +592,30 @@ def dense_paths(torch, args, K, Predicate, intervals, QueryEngine, sidx,
     return {"hidx": hidx, "launches": launches}
 
 
+EDGE_VALUES = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, -1.0, 1.0, 2.0,
+                        3.0, 3.4e38, -3.4e38], np.float32)
+
+
 def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
     """Kernel == plain version at shapes off the kernels' tiles: Q across the
     query tile, Q=1 and Q=65, E off the entry tile, C=50 and C=7, M=1 / M
     across the page tile, P off the page tiles, empty intervals, all-zero
-    query rows, words with bit 31 set."""
+    query rows, words with bit 31 set. For the two inspections also keys and
+    endpoints drawn from ``EDGE_VALUES`` (NaN, +-0, +-inf, many ties, lo ==
+    hi and lo > hi), C=1, C above a warp and above one round of 2048 slots,
+    pads in ``sel`` and Q above one launch's query limit."""
     rng = np.random.default_rng(1)
+
+    def edge_case(shape, q):
+        keys = rng.choice(EDGE_VALUES, shape)
+        keys = np.where(rng.random(shape) < 0.3,
+                        rng.integers(-2, 5, shape).astype(np.float32), keys)
+        lo = rng.choice(EDGE_VALUES, q)
+        hi = np.where(rng.random(q) < 0.3, lo, rng.choice(EDGE_VALUES, q))
+        return (torch.from_numpy(keys).to(dev),
+                torch.from_numpy(rng.random(shape) < 0.85).to(dev),
+                torch.from_numpy(lo).to(dev),
+                torch.from_numpy(hi.astype(np.float32)).to(dev))
 
     def words(shape, density):
         bits = rng.random((*shape, 32)) < density
@@ -567,6 +647,18 @@ def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
         los = torch.from_numpy(lo).to(dev)
         his = torch.from_numpy(hi).to(dev)
         exact(torch, f"compact_inspect ragged {(s, p, c, m, q)}",
+              ci_ops.compact_inspect(keys, valid, sel, sel_mask, los, his),
+              ci_ops.compact_inspect_ref(keys, valid, sel, sel_mask, los, his))
+    for s, p, c, m, q in ((1, 1, 1, 1, 1), (2, 30, 1, 70, 65),
+                          (1, 9, 7, 20, 2), (3, 40, 50, 33, 64),
+                          (1, 12, 33, 9, 130),
+                          (2, 6, 300, 5, 16), (1, 20, 50, 40, 1100),
+                          (2, 3, 2100, 4, 9), (1, 4, 300, 6, 600)):
+        keys, valid, los, his = edge_case((s, p, c), q)
+        sel = np.sort(rng.integers(0, p + 3, (s, m)), axis=1)   # pads >= P
+        sel = torch.from_numpy(sel.astype(np.int32)).to(dev)
+        sel_mask = torch.from_numpy(rng.random((s, q, m)) < 0.8).to(dev)
+        exact(torch, f"compact_inspect edge values {(s, p, c, m, q)}",
               ci_ops.compact_inspect(keys, valid, sel, sel_mask, los, his),
               ci_ops.compact_inspect_ref(keys, valid, sel, sel_mask, los, his))
     for h in (400, 7, 1):
@@ -617,6 +709,14 @@ def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
         los = torch.from_numpy(lo).to(dev)
         his = torch.from_numpy(hi).to(dev)
         exact(torch, f"page_inspect_many ragged {(s, p, c, q)}",
+              pi_ops.page_inspect_many(keys, valid, page_mask, los, his),
+              pi_ops.page_inspect_many_ref(keys, valid, page_mask, los, his))
+    for s, p, c, q in ((1, 1, 1, 1), (2, 70, 1, 65), (1, 9, 7, 2),
+                       (3, 40, 50, 64), (1, 33, 33, 130), (2, 6, 300, 16),
+                       (1, 20, 50, 1100), (2, 3, 2100, 9), (1, 4, 300, 600)):
+        keys, valid, los, his = edge_case((s, p, c), q)
+        page_mask = torch.from_numpy(rng.random((s, q, p)) < 0.8).to(dev)
+        exact(torch, f"page_inspect_many edge values {(s, p, c, q)}",
               pi_ops.page_inspect_many(keys, valid, page_mask, los, his),
               pi_ops.page_inspect_many_ref(keys, valid, page_mask, los, his))
 

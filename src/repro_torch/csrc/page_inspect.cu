@@ -30,27 +30,29 @@
 // (Q, P, C) tuple mask (3.84 GB at SF10, Q=64) only to sum it. Bound: the
 // tuples are read once (keys 4 B + valid 1 B each), the page masks once
 // (S*Q*P bytes) and the counts written once; at SF10 with Q=64 that is
-// ~377 MB, ~0.11 ms; the compares (3 per tuple per active (query, page)
-// pair) are the other bound and are counted from the data. Design: blocks
-// grid-stride over tiles of 2048 tuples of their shard; each thread holds 8
-// tuples in registers (read once, coalesced) and tests them against every
-// query, whose interval sits in shared memory. The interval compares come
-// first, so a tuple outside a narrow interval never reads the page mask.
-// Per-query counts reduce in the warp (`__reduce_add_sync`), then in shared
-// memory, then one integer `atomicAdd` per (block, query) into the output:
-// integer sums do not depend on their order, so the result is exact and
-// the same on every run.
+// ~377 MB, ~0.11 ms. Design: kernel B's (page_count.cuh). A persistent grid,
+// (blocks per shard, S), sorts the batch's endpoints once per block and walks
+// tiles of T = 32 contiguous pages of its shard: it loads the tile's page-mask
+// bytes and the next tile's tuples (a warp reads 128 contiguous bytes of
+// keys), ranks the tile's tuples, loaded during the previous tile, against
+// the sorted endpoints and adds them to the tile's rank histograms; after the
+// suffix sums, each (query, page) pair of the tile is its page-mask byte
+// times two shared-memory lookups. A thread meets the same (query,
+// page-in-tile) pairs in every tile, so it sums them in registers across its
+// tiles; at the end the T lanes of each query reduce with shuffles and add
+// with one integer `atomicAdd` per (block, query) into the output: integer
+// sums do not depend on their order, so the result is exact and the same on
+// every run.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "page_count.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using namespace hippo_pc;
+
 constexpr int kTilePages = 64;    // pages per block (single query)
-constexpr int kPerThread = 8;     // tuples per thread per tile (batched)
-constexpr int kTile = kThreads * kPerThread;
-constexpr int kMaxQueries = 4096; // 12 B per query of shared memory
-constexpr int kResidentBlocks = 132 * 8;
 
 __global__ void page_inspect_kernel(const float* __restrict__ keys,
                                     const uint8_t* __restrict__ valid,
@@ -81,60 +83,135 @@ __global__ void page_inspect_kernel(const float* __restrict__ keys,
   if (threadIdx.x < np) counts[p0 + threadIdx.x] = cnt[threadIdx.x];
 }
 
-__global__ void page_inspect_many_kernel(
-    const float* __restrict__ keys, const uint8_t* __restrict__ valid,
-    const uint8_t* __restrict__ page_mask, const float* __restrict__ los,
-    const float* __restrict__ his, int P, int C, int Q, int tiles,
-    int32_t* __restrict__ counts) {
-  extern __shared__ unsigned char smem[];
-  float* slo = reinterpret_cast<float*>(smem);
-  float* shi = slo + Q;
-  int* scnt = reinterpret_cast<int*>(shi + Q);
+template <int kSteps, bool kPacked>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    page_inspect_many_kernel(const float* __restrict__ keys,
+                             const uint8_t* __restrict__ valid,
+                             const uint8_t* __restrict__ page_mask,
+                             const float* __restrict__ los,
+                             const float* __restrict__ his, int P, int C,
+                             int Q, int log_tile, int tiles,
+                             int32_t* __restrict__ counts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int n2 = 1 << kSteps;
+  float* eyt = reinterpret_cast<float*>(smem);
+  int* plo = reinterpret_cast<int*>(eyt + n2);
+  int* phi = plo + Q;
+  float* srt = reinterpret_cast<float*>(phi + Q);
+  int* buckets = reinterpret_cast<int*>(srt + 2 * Q);
+  float* span = reinterpret_cast<float*>(buckets + kBuckets);
+  int* hist = reinterpret_cast<int*>(span + 4);
+  const int T = 1 << log_tile;
+  const int stride = hist_stride(Q, kPacked);
+  sort_endpoints(los, his, Q, kSteps, eyt, srt, plo, phi,
+                 reinterpret_cast<float*>(buckets));
+  const Ranks ranks = make_ranks(eyt, srt, buckets, span, Q);
+  int cells[kPairsPerThread];
+  pair_cells(plo, phi, Q, log_tile, cells);
   const int s = blockIdx.y;
-  for (int i = threadIdx.x; i < Q; i += kThreads) {
-    slo[i] = los[i];
-    shi[i] = his[i];
-    scnt[i] = 0;
-  }
-  __syncthreads();
-  const int n = P * C;   // the wrapper keeps one shard's tuples below 2^31
-  const float* ks = keys + (int64_t)s * n;
-  const uint8_t* vs = valid + (int64_t)s * n;
-  const uint8_t* ms = page_mask + (int64_t)s * Q * P;
-  const int lane = threadIdx.x & 31;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    // A tuple past the edge or invalid holds a NaN key, which no interval
-    // contains, so the query loop needs no validity branch (a NaN key in
-    // the table compares false in the reference too).
-    float k[kPerThread];
-    int page[kPerThread];
+  const int G = gridDim.x;
+  const int tid = threadIdx.x;
+  const float* keys_s = keys + (int64_t)s * P * C;
+  const uint8_t* valid_s = valid + (int64_t)s * P * C;
+  const uint8_t* mask_s = page_mask + (int64_t)s * Q * P;
+  auto tile_pages = [&](int t) { return min(T, P - (t << log_tile)); };
+  // Loads slot c of page m of the tile that starts at page p0.
+  auto from = [=](int p0) {
+    return [=](int m, int c, float& k, uint8_t& v) {
+      const int64_t off = (int64_t)(p0 + m) * C + c;
+      k = keys_s[off];
+      v = valid_s[off];
+    };
+  };
+  // Pair j = q * T + m of every tile: this thread's are j = tid + i *
+  // kThreads, the same in every tile, so their sums stay in registers.
+  int acc[kPairsPerThread];
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int i = t * kTile + j * kThreads + threadIdx.x;
-      k[j] = __int_as_float(0x7fc00000);
-      page[j] = 0;
-      if (i < n && vs[i] != 0) {
-        k[j] = ks[i];
-        page[j] = i / C;
+  for (int i = 0; i < kPairsPerThread; ++i) acc[i] = 0;
+  int t = blockIdx.x;
+  Round cur;
+  load_round(cur, 0, tile_pages(t), C, from(t << log_tile));
+  for (; t < tiles; t += G) {
+    const int p0 = t << log_tile;
+    const int nm = tile_pages(t);
+    const int tn = t + G;
+    __syncthreads();   // the histograms are free
+    uint8_t hit[kPairsPerThread];
+#pragma unroll
+    for (int i = 0; i < kPairsPerThread; ++i) {
+      const int j = tid + i * kThreads;
+      const int q = j >> log_tile;
+      const int m = j & (T - 1);
+      hit[i] = q < Q && m < nm ? mask_s[(int64_t)q * P + p0 + m] : 0;
+    }
+    Round next = {};
+    if (tn < tiles) {
+      load_round(next, 0, tile_pages(tn), C, from(tn << log_tile));
+    }
+    clear_hist(hist, T, stride);
+    __syncthreads();
+    add_round<kSteps, kPacked>(cur, 0, nm, C, ranks, hist, stride);
+    for (int r = 1; r * kRoundTuples < nm * C; ++r) {   // pages > 2048 slots
+      Round more;
+      load_round(more, r, nm, C, from(p0));
+      add_round<kSteps, kPacked>(more, r, nm, C, ranks, hist, stride);
+    }
+    __syncthreads();
+    suffix_sums<kPacked>(hist, T, stride, Q);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kPairsPerThread; ++i) {
+      const int m = (tid + i * kThreads) & (T - 1);
+      if (hit[i]) {
+        acc[i] += cell_at<kPacked>(hist, stride, m, cells[i] & 0xffff) -
+                  cell_at<kPacked>(hist, stride, m, cells[i] >> 16);
       }
     }
-    for (int q = 0; q < Q; ++q) {
-      const float lo = slo[q];
-      const float hi = shi[q];
-      const uint8_t* mq = ms + (int64_t)q * P;
-      int c = 0;
+    cur = next;
+  }
+  // The T lanes of one query are T aligned lanes of one warp (T <= 32).
 #pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        if (k[j] >= lo && k[j] <= hi) c += mq[page[j]];   // mask bytes: 0/1
-      }
-      c = __reduce_add_sync(0xffffffffu, c);
-      if (lane == 0 && c != 0) atomicAdd(&scnt[q], c);
+  for (int i = 0; i < kPairsPerThread; ++i) {
+    int v = acc[i];
+    for (int o = T >> 1; o > 0; o >>= 1) {
+      v += __shfl_down_sync(0xffffffffu, v, o, T);
+    }
+    const int j = tid + i * kThreads;
+    const int q = j >> log_tile;
+    if ((j & (T - 1)) == 0 && q < Q && v != 0) {
+      atomicAdd(&counts[(int64_t)s * Q + q], v);
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < Q; i += kThreads) {
-    if (scnt[i] != 0) atomicAdd(&counts[(int64_t)s * Q + i], scnt[i]);
-  }
+}
+
+template <int kSteps, bool kPacked>
+cudaError_t launch_many(const float* keys, const uint8_t* valid,
+                        const uint8_t* page_mask, const float* los,
+                        const float* his, int S, int P, int C, int Q,
+                        int32_t* counts, cudaStream_t stream) {
+  const size_t smem = shared_bytes(Q, C);
+  const int lg = tile_log(Q, C);
+  const int tiles = (P + (1 << lg) - 1) >> lg;
+  int per_shard = 1;
+  const cudaError_t err = persistent_blocks(
+      page_inspect_many_kernel<kSteps, kPacked>, smem, tiles, S, &per_shard);
+  if (err != cudaSuccess) return err;
+  page_inspect_many_kernel<kSteps, kPacked>
+      <<<dim3(per_shard, S), kThreads, smem, stream>>>(
+          keys, valid, page_mask, los, his, P, C, Q, lg, tiles, counts);
+  return cudaGetLastError();
+}
+
+template <int kSteps>
+cudaError_t launch_many(const float* keys, const uint8_t* valid,
+                        const uint8_t* page_mask, const float* los,
+                        const float* his, int S, int P, int C, int Q,
+                        int32_t* counts, cudaStream_t stream) {
+  return packed_counts(C)
+             ? launch_many<kSteps, true>(keys, valid, page_mask, los, his, S,
+                                         P, C, Q, counts, stream)
+             : launch_many<kSteps, false>(keys, valid, page_mask, los, his,
+                                          S, P, C, Q, counts, stream);
 }
 
 }  // namespace
@@ -157,17 +234,27 @@ extern "C" int hippo_page_inspect_many(const float* keys, const uint8_t* valid,
                                        const float* los, const float* his,
                                        int S, int P, int C, int Q,
                                        int32_t* counts, cudaStream_t stream) {
-  if (Q > kMaxQueries || (int64_t)P * C > 0x7fffffffLL - kTile ||
-      S > 65535) {
+  if (Q > kMaxQueries || S > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  if (S > 0 && P > 0 && C > 0 && Q > 0) {
-    const int tiles = (int)(((int64_t)P * C + kTile - 1) / kTile);
-    const int per_shard = max(1, min(tiles, kResidentBlocks / S));
-    const size_t smem = (size_t)Q * 3 * sizeof(float);
-    dim3 grid(per_shard, S);
-    page_inspect_many_kernel<<<grid, kThreads, smem, stream>>>(
-        keys, valid, page_mask, los, his, P, C, Q, tiles, counts);
+  if (S <= 0 || P <= 0 || C <= 0 || Q <= 0) return (int)cudaGetLastError();
+  cudaError_t err;
+  switch (search_steps(Q)) {
+    case 4:
+      err = launch_many<4>(keys, valid, page_mask, los, his, S, P, C, Q,
+                           counts, stream);
+      break;
+    case 8:
+      err = launch_many<8>(keys, valid, page_mask, los, his, S, P, C, Q,
+                           counts, stream);
+      break;
+    case 10:
+      err = launch_many<10>(keys, valid, page_mask, los, his, S, P, C, Q,
+                           counts, stream);
+      break;
+    default:
+      err = launch_many<12>(keys, valid, page_mask, los, his, S, P, C, Q,
+                            counts, stream);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }

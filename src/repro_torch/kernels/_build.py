@@ -60,13 +60,13 @@ SIGNATURES = {
 }
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(csrc.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -93,14 +93,15 @@ def _fsync(path: Path) -> None:
         os.close(fd)
 
 
-def build() -> Path:
-    """Compile and link the kernels if this source hash has no library yet.
+def build(csrc: Path = CSRC) -> Path:
+    """Compile and link the kernels of ``csrc`` (the package's own by
+    default) if this source hash has no library yet.
 
     Returns the library's path. The compiler's output (``-Xptxas -v``:
     registers, shared memory, spills per kernel) is kept beside it in
     ``build.log``. A failed compile raises with that output.
     """
-    out_dir = BUILD_ROOT / source_hash()
+    out_dir = BUILD_ROOT / source_hash(csrc)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -108,7 +109,7 @@ def build() -> Path:
     exe = nvcc()
     tag = f"{os.getpid()}"
     jobs = []
-    for src in sources():
+    for src in sources(csrc):
         obj = out_dir / f"{src.stem}.{tag}.o"
         proc = subprocess.Popen([exe, *COMPILE_FLAGS, "-c", str(src), "-o",
                                  str(obj)], stdout=subprocess.PIPE,
@@ -139,10 +140,9 @@ def build() -> Path:
     return lib
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call, once per process)."""
-    lib = ctypes.CDLL(str(build()))
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its entry points' types."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -150,6 +150,12 @@ def library() -> ctypes.CDLL:
     lib.hippo_error_string.argtypes = [ctypes.c_int]
     lib.hippo_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call, once per process)."""
+    return load(build())
 
 
 def check(err: int, what: str) -> None:

@@ -10,12 +10,7 @@ KERNEL = _build.Kernel("hippo_compact_inspect",
                        "src/repro_torch/csrc/compact_inspect.cu",
                        "src/repro/kernels/compact_inspect/kernel.py:39")
 
-TILE_PAGES = 32   # kTilePages in the source
-
-
-def shared_bytes(page_card: int, num_queries: int) -> int:
-    """Dynamic shared memory of one block (mirrors the source)."""
-    return ((TILE_PAGES * page_card * 5 + 15) & ~15) + num_queries * 8
+MAX_QUERIES = 1024   # kMaxQueries in csrc/page_count.cuh; ops splits more
 
 
 def launch(keys: torch.Tensor, valid: torch.Tensor, sel: torch.Tensor,
@@ -23,7 +18,8 @@ def launch(keys: torch.Tensor, valid: torch.Tensor, sel: torch.Tensor,
            out: torch.Tensor) -> None:
     """keys (S, P, C) f32, valid (S, P, C) bool, sel (S, M) int32, sel_mask
     (S, Q, M) bool, los/his (Q,) f32, out (S, Q, M) int32, all contiguous on
-    one CUDA device (``ops`` checks)."""
+    one CUDA device, Q <= MAX_QUERIES (``ops`` checks and splits larger
+    batches)."""
     s, p, c = keys.shape
     KERNEL.launch(keys.data_ptr(), valid.data_ptr(), sel.data_ptr(),
                   sel_mask.data_ptr(), los.data_ptr(), his.data_ptr(), s, p,

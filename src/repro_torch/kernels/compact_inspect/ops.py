@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels.compact_inspect import kernel
 from repro_torch.kernels.compact_inspect.ref import compact_inspect_ref
 
-_MAX_SHARED = 48 * 1024
+_MAX_CARD = 1 << 20   # a block's tile of 32 pages indexes with int32
 
 
 def compact_inspect(keys: torch.Tensor, valid: torch.Tensor,
@@ -53,9 +53,14 @@ def compact_inspect(keys: torch.Tensor, valid: torch.Tensor,
     if keys.device.type != "cuda":
         raise ValueError(f"compact_inspect runs on cpu or cuda, got "
                          f"{keys.device}")
-    if kernel.shared_bytes(c, q) > _MAX_SHARED:
-        raise ValueError(f"page_card {c} x {q} queries exceed the kernel's "
-                         f"shared memory")
+    if c > _MAX_CARD:
+        raise ValueError(f"page_card {c} exceeds the kernel's {_MAX_CARD}")
+    n = kernel.MAX_QUERIES
+    if q > n:
+        return torch.cat([compact_inspect(keys, valid, sel,
+                                          sel_mask[:, i:i + n].contiguous(),
+                                          los[i:i + n], his[i:i + n])
+                          for i in range(0, q, n)], dim=1)
     out = torch.empty((s, q, m), dtype=torch.int32, device=keys.device)
     if out.numel():
         kernel.launch(keys, valid, sel, sel_mask, los, his, out)

@@ -18,8 +18,7 @@ REPLACES = "src/repro/kernels/page_inspect/kernel.py:35"
 SINGLE = _build.Kernel("hippo_page_inspect", SOURCE, REPLACES)
 MANY = _build.Kernel("hippo_page_inspect_many", SOURCE, REPLACES)
 
-MAX_QUERIES = 4096   # kMaxQueries in the source (12 B of shared memory each)
-MAX_TUPLES = (1 << 31) - 1 - 2048   # one shard's P*C, int32 indexing
+MAX_QUERIES = 1024   # kMaxQueries in csrc/page_count.cuh; ops splits more
 
 
 def launch(keys: torch.Tensor, valid: torch.Tensor, mask: torch.Tensor,

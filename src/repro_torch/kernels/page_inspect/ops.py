@@ -91,9 +91,8 @@ def page_inspect_many(keys: torch.Tensor, valid: torch.Tensor,
         raise ValueError("page_inspect_many takes tensors on one device")
     if keys.device.type == "cpu":
         return page_inspect_many_ref(keys, valid, page_mask, los, his)
-    if p * c > kernel.MAX_TUPLES or s > 65535:
-        raise ValueError(f"{s} shards of {p} x {c} tuples exceed the "
-                         f"kernel's grid and int32 indexing")
+    if s > 65535:
+        raise ValueError(f"{s} shards exceed the kernel's grid")
     m = kernel.MAX_QUERIES
     if q > m:
         return torch.cat([page_inspect_many(keys, valid,

@@ -12,6 +12,7 @@ not installed. The build tests at the bottom run everywhere.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro_torch.core.hippo import HippoIndex
 from repro_torch.core.partition import ShardedHippoIndex
@@ -56,7 +57,10 @@ def test_batch_filter_kernel_equals_plain(s, q, e, w):
 
 @needs_cuda
 @pytest.mark.parametrize("s,p,c,m,q", [(2, 40, 50, 1, 5), (3, 70, 50, 33, 67),
-                                       (1, 5, 7, 40, 3), (2, 300, 50, 256, 64)])
+                                       (1, 5, 7, 40, 3), (2, 300, 50, 256, 64),
+                                       (1, 20, 300, 17, 9), (2, 30, 1, 70, 1),
+                                       (2, 3, 2100, 4, 9),
+                                       (1, 4, 300, 6, 600)])
 def test_compact_inspect_kernel_equals_plain(s, p, c, m, q):
     rng = np.random.default_rng(s * 1000 + m)
     keys = torch.from_numpy(rng.integers(0, 100, (s, p, c)).astype(np.float32))
@@ -146,7 +150,8 @@ def test_page_inspect_kernel_equals_plain(p, c):
 @needs_cuda
 @pytest.mark.parametrize("s,p,c,q", [(1, 40, 50, 1), (3, 70, 50, 65),
                                      (1, 5, 7, 3), (2, 300, 50, 64),
-                                     (4, 2049, 1, 9), (2, 3, 5, 4100)])
+                                     (4, 2049, 1, 9), (2, 3, 5, 4100),
+                                     (2, 3, 2100, 9), (1, 4, 300, 600)])
 def test_page_inspect_many_kernel_equals_plain(s, p, c, q):
     rng = np.random.default_rng(s * 1000 + p + q)
     keys, valid = _table(rng, (s, p, c))
@@ -159,6 +164,77 @@ def test_page_inspect_many_kernel_equals_plain(s, p, c, q):
                                                         page_mask, los, his)))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+# Keys and interval endpoints from one small pool: NaN, both zeros, both
+# infinities and a few values, so that keys tie with endpoints and endpoints
+# tie with each other; lo == hi and lo > hi come up often.
+EDGE_VALUES = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, -1.0, 1.0, 2.0,
+                        3.0, 3.4e38, -3.4e38], np.float32)
+
+
+def _edge_batch(seed, q):
+    rng = np.random.default_rng(seed)
+    los = rng.choice(EDGE_VALUES, q)
+    his = np.where(rng.random(q) < 0.3, los, rng.choice(EDGE_VALUES, q))
+    return rng, torch.from_numpy(los), torch.from_numpy(his.astype(np.float32))
+
+
+def _edge_table(rng, shape):
+    keys = rng.choice(EDGE_VALUES, shape)
+    keys = np.where(rng.random(shape) < 0.3,
+                    rng.integers(-2, 5, shape).astype(np.float32), keys)
+    valid = rng.random(shape) < 0.85
+    return torch.from_numpy(keys), torch.from_numpy(valid)
+
+
+# The card check is the outer test's (the skipif string is evaluated in this
+# module's globals); hypothesis draws inside it.
+@needs_cuda
+def test_compact_inspect_kernel_equals_plain_on_edge_values():
+    @settings(max_examples=30, deadline=None, database=None)
+    @given(seed=st.integers(0, 2**32 - 1),
+           shape=st.sampled_from([(1, 1, 1, 1), (2, 9, 7, 20), (1, 40, 50, 33),
+                                  (3, 12, 33, 64), (1, 6, 100, 5),
+                                  (1, 2, 2100, 3)]),
+           q=st.sampled_from([1, 2, 15, 16, 64, 65, 127, 130, 1025]))
+    def check(seed, shape, q):
+        s, p, c, m = shape
+        rng, los, his = _edge_batch(seed, q)
+        keys, valid = _edge_table(rng, (s, p, c))
+        sel = np.sort(rng.integers(0, p + 3, (s, m)), axis=1)   # pads >= P
+        sel = torch.from_numpy(sel.astype(np.int32))
+        sel_mask = torch.from_numpy(rng.random((s, q, m)) < 0.8)
+        want = ci_ops.compact_inspect(keys, valid, sel, sel_mask, los, his)
+        got = ci_ops.compact_inspect(*(t.cuda() for t in (keys, valid, sel,
+                                                          sel_mask, los,
+                                                          his)))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+    check()
+
+
+@needs_cuda
+def test_page_inspect_many_kernel_equals_plain_on_edge_values():
+    @settings(max_examples=30, deadline=None, database=None)
+    @given(seed=st.integers(0, 2**32 - 1),
+           shape=st.sampled_from([(1, 1, 1), (2, 9, 7), (1, 40, 50),
+                                  (3, 33, 33), (1, 6, 100), (1, 2, 2100)]),
+           q=st.sampled_from([1, 2, 15, 16, 64, 65, 127, 130, 1025]))
+    def check(seed, shape, q):
+        s, p, c = shape
+        rng, los, his = _edge_batch(seed, q)
+        keys, valid = _edge_table(rng, (s, p, c))
+        page_mask = torch.from_numpy(rng.random((s, q, p)) < 0.8)
+        want = pi_ops.page_inspect_many(keys, valid, page_mask, los, his)
+        got = pi_ops.page_inspect_many(*(t.cuda() for t in (keys, valid,
+                                                            page_mask, los,
+                                                            his)))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+    check()
 
 
 @needs_cuda
@@ -236,3 +312,13 @@ def test_sources_hash_changes_with_flags(monkeypatch):
     assert [p.name for p in _build.sources()] == [
         "batch_filter.cu", "bitmap_and.cu", "bucketize.cu",
         "compact_inspect.cu", "page_inspect.cu"]
+
+
+def test_sources_and_hash_of_another_directory(tmp_path):
+    (tmp_path / "a.cu").write_text("// a\n")
+    (tmp_path / "shared.cuh").write_text("// one\n")
+    assert [p.name for p in _build.sources(tmp_path)] == ["a.cu"]
+    before = _build.source_hash(tmp_path)
+    assert before != _build.source_hash()
+    (tmp_path / "shared.cuh").write_text("// two\n")   # headers are hashed
+    assert _build.source_hash(tmp_path) != before
