@@ -34,16 +34,19 @@ each of which exits nonzero on failure:
 3. Each kernel against its plain PyTorch version on the card, exactly, at
    the main paths' shapes and at ragged edges; then the kernel, the plain
    version and (where one exists) the one PyTorch call that computes the
-   same function are timed with CUDA events.
+   same function are timed with CUDA events. For the joint-bucket filters
+   also a fill of an output of their shape and a read of their entry words,
+   the card's own streaming of the bytes they must move.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
 
 ``--baseline-csrc DIR`` also builds the CUDA sources in DIR (an earlier
 design of ``src/repro_torch/csrc``, with the same C entry points) and times
-its ``compact_inspect`` and ``page_inspect_many`` against the package's at
-the main paths' shapes, in turns (baseline, package, package, baseline),
-after checking that the two give the same counts.
+its ``batch_filter`` (sharded and unsharded), ``compact_inspect`` and
+``page_inspect_many`` against the package's at the main paths' shapes, in
+turns (baseline, package, package, baseline), after checking that the two
+give the same results.
 """
 from __future__ import annotations
 
@@ -405,7 +408,17 @@ def main() -> int:
     if args.baseline_csrc is not None:
         b_args = (keys, valid, sel, sel_mask, blo, bhi)
         e_args = (k1, v1, hmask, blo, bhi)
+        a_args = (qb, shards.bitmaps, live)
+        d_args = (hqb, hst.bitmaps, hlive)
         compare_designs(torch, _build, args.baseline_csrc, {
+            "batch_filter": (
+                lambda: bf_ops.batch_filter_sharded(*a_args),
+                lambda lib: baseline_batch_filter(torch, _build, lib,
+                                                  *a_args)),
+            "batch_filter_unsharded": (
+                lambda: bf_ops.batch_filter(*d_args),
+                lambda lib: baseline_batch_filter(torch, _build, lib,
+                                                  *d_args)),
             "compact_inspect": (
                 lambda: ci_ops.compact_inspect(*b_args),
                 lambda lib: baseline_compact_inspect(torch, _build, lib,
@@ -429,11 +442,49 @@ def main() -> int:
                "library_ms": time_ms(torch, fl, 20) if fl else None}
         print(f"{name}: {shapes} " + json.dumps(row))
         kernels.append(row)
+    stream_yardsticks(torch, {
+        "batch_filter": (shards.bitmaps, (s, q, shards.bitmaps.shape[1])),
+        "batch_filter_unsharded": (hst.bitmaps, (q, he))})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def stream_yardsticks(torch, cases: dict) -> None:
+    """What the card takes to stream a kernel's bytes without its work: a
+    fill of an output of the kernel's shape and a read of its input (a max
+    over the words), each timed alone."""
+    out = {}
+    for name, (inp, shape) in cases.items():
+        buf = torch.empty(shape, dtype=torch.bool, device=inp.device)
+        flat = inp.reshape(-1)
+        out[name] = {"fill_out_ms": time_ms(torch, lambda: buf.fill_(True), 20),
+                     "read_in_ms": time_ms(torch, lambda: flat.max(), 20),
+                     "out_bytes": buf.numel(), "in_bytes": flat.numel() * 4}
+    print("streaming yardsticks: " + json.dumps(out))
+
+
+def baseline_batch_filter(torch, _build, lib, queries, entries, live):
+    """The baseline library's filter: the sharded entry point for (S, Q, W)
+    queries, the unsharded one for (Q, W)."""
+    if queries.dim() == 3:
+        s, q, w = queries.shape
+        out = torch.empty((s, q, entries.shape[1]), dtype=torch.bool,
+                          device=queries.device)
+        err = lib.hippo_batch_filter_sharded(
+            queries.data_ptr(), entries.data_ptr(), live.data_ptr(), s, q,
+            entries.shape[1], w, out.data_ptr(), _build.stream_of(queries))
+    else:
+        q, w = queries.shape
+        out = torch.empty((q, entries.shape[0]), dtype=torch.bool,
+                          device=queries.device)
+        err = lib.hippo_batch_filter(
+            queries.data_ptr(), entries.data_ptr(), live.data_ptr(), q,
+            entries.shape[0], w, out.data_ptr(), _build.stream_of(queries))
+    _build.check(err, "baseline hippo_batch_filter")
+    return out
 
 
 def baseline_compact_inspect(torch, _build, lib, keys, valid, sel, sel_mask,
@@ -594,13 +645,24 @@ def dense_paths(torch, args, K, Predicate, intervals, QueryEngine, sidx,
 
 EDGE_VALUES = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, -1.0, 1.0, 2.0,
                         3.0, 3.4e38, -3.4e38], np.float32)
+# (S, Q, E, W) of the joint-bucket filters at the edges of their tensor-core
+# tiling: Q across the 16-query m-tiles and the 64-query pass, W across the
+# 8-word k-steps, E off the 256- and 128-entry tiles, E = 1 (the routing
+# summary test), and odd E, so output rows and shard views start at every
+# alignment.
+BATCH_FILTER_EDGES = ((3, 70, 300, 13), (1, 1, 1, 2), (2, 65, 129, 32),
+                      (4, 64, 1, 13), (1, 1, 300, 13), (2, 16, 257, 1),
+                      (3, 17, 513, 8), (1, 64, 255, 9), (2, 65, 1001, 16),
+                      (2, 130, 129, 17), (1, 33, 777, 24), (3, 64, 2049, 13))
 
 
 def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
     """Kernel == plain version at shapes off the kernels' tiles: Q across the
     query tile, Q=1 and Q=65, E off the entry tile, C=50 and C=7, M=1 / M
     across the page tile, P off the page tiles, empty intervals, all-zero
-    query rows, words with bit 31 set. For the two inspections also keys and
+    query rows, words with bit 31 set. For the filters also the shapes of
+    ``BATCH_FILTER_EDGES``, dead slots, and the unsharded filter on every
+    shard's view of a stack. For the two inspections also keys and
     endpoints drawn from ``EDGE_VALUES`` (NaN, +-0, +-inf, many ties, lo ==
     hi and lo > hi), C=1, C above a warp and above one round of 2048 slots,
     pads in ``sel`` and Q above one launch's query limit."""
@@ -622,7 +684,7 @@ def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
         w = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
         return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
 
-    for s, q, e, w in ((3, 70, 300, 13), (1, 1, 1, 2), (2, 65, 129, 32)):
+    for s, q, e, w in BATCH_FILTER_EDGES:
         qb = words((s, q, w), 0.02)
         qb[:, ::7] = 0                                   # all-zero queries
         qb[:, 1::5, -1] |= torch.tensor(np.uint32(1 << 31).view(np.int32),
@@ -631,9 +693,18 @@ def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
         ent[:, ::3, -1] = torch.tensor(np.uint32(1 << 31).view(np.int32),
                                        device=dev)
         live = torch.from_numpy(rng.random((s, e)) < 0.8).to(dev)
+        live[-1, e // 2:] = False                        # past num_slots
+        if s > 1:
+            live[0] = False                              # a dead shard
         exact(torch, f"batch_filter ragged {(s, q, e, w)}",
               bf_ops.batch_filter_sharded(qb, ent, live),
               bf_ops.batch_filter_sharded_ref(qb, ent, live))
+        # D on each shard's view of the stack (4 B aligned only for odd E)
+        for k in range(s):
+            exact(torch, f"batch_filter_unsharded on shard view {k} of "
+                  f"{(s, q, e, w)}",
+                  bf_ops.batch_filter(qb[k].contiguous(), ent[k], live[k]),
+                  bf_ops.batch_filter_ref(qb[k].contiguous(), ent[k], live[k]))
     for s, p, c, m, q in ((2, 40, 50, 1, 5), (3, 70, 50, 33, 67),
                           (1, 5, 7, 40, 3)):
         keys = torch.from_numpy(
@@ -670,7 +741,9 @@ def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
         exact(torch, f"bucketize ragged H={h}",
               bk_ops.bucketize_values(vals, bounds, h),
               bk_ops.bucketize_ref(vals, bounds, h))
-    for q, e, w in ((70, 300, 13), (1, 1, 2), (65, 257, 32), (64, 129, 13)):
+    for q, e, w in ((70, 300, 13), (1, 1, 2), (65, 257, 32), (64, 129, 13),
+                    (16, 1, 1), (17, 513, 8), (64, 255, 9), (130, 1001, 16),
+                    (33, 777, 17), (1, 300, 24)):
         qb = words((q, w), 0.02)
         qb[::7] = 0                                      # all-zero queries
         qb[1::5, -1] |= torch.tensor(np.uint32(1 << 31).view(np.int32),

@@ -18,7 +18,7 @@ from repro_torch.kernels.batch_filter import kernel
 from repro_torch.kernels.batch_filter.ref import (batch_filter_ref,
                                                   batch_filter_sharded_ref)
 
-_MAX_WORDS = 32   # the kernel keeps an entry's words in registers
+_MAX_WORDS = 32   # the kernel's tensor-core product: at most 4 k-steps
 
 
 def _check(queries: torch.Tensor, entries: torch.Tensor,

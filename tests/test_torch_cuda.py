@@ -38,9 +38,20 @@ def _words(rng, shape, density):
     return torch.from_numpy(w.astype(np.uint32).view(np.int32))
 
 
+# Shapes at the edges of the tensor-core tiling: Q across the 16-query m-tiles
+# and the 64-query pass (1, 16, 17, 64, 65, 130), W across the 8-word k-steps
+# (1, 2, 8, 9, 13, 16, 17, 24, 32), E off the 256- and 128-entry tiles and
+# E = 1 ((4, 64, 1, 13) is plan_batch's routing summary test); rows of the
+# (S, Q, E) output then start at every alignment.
+BATCH_FILTER_SHAPES = [(3, 70, 300, 13), (1, 1, 1, 2), (2, 65, 129, 32),
+                       (4, 64, 1024, 13), (4, 64, 1, 13), (1, 1, 300, 13),
+                       (2, 16, 257, 1), (1, 17, 513, 8), (3, 64, 255, 9),
+                       (1, 65, 1000, 16), (2, 130, 129, 17), (1, 33, 777, 24),
+                       (2, 64, 2049, 13), (1, 17, 3, 32)]
+
+
 @needs_cuda
-@pytest.mark.parametrize("s,q,e,w", [(3, 70, 300, 13), (1, 1, 1, 2),
-                                     (2, 65, 129, 32), (4, 64, 1024, 13)])
+@pytest.mark.parametrize("s,q,e,w", BATCH_FILTER_SHAPES)
 def test_batch_filter_kernel_equals_plain(s, q, e, w):
     rng = np.random.default_rng(s * 1000 + q)
     qb = _words(rng, (s, q, w), 0.02)
@@ -53,6 +64,44 @@ def test_batch_filter_kernel_equals_plain(s, q, e, w):
     got = bf_ops.batch_filter_sharded(qb.cuda(), ent.cuda(), live.cuda())
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+@needs_cuda
+def test_batch_filter_kernel_with_dead_slots():
+    # live all false in one shard, slots at and past num_slots in another
+    rng = np.random.default_rng(13)
+    s, q, e, w = 3, 65, 700, 13
+    qb = _words(rng, (s, q, w), 0.3)
+    ent = _words(rng, (s, e, w), 0.3)
+    live = torch.from_numpy(rng.random((s, e)) < 0.9)
+    live[0] = False
+    live[2, 400:] = False
+    want = bf_ops.batch_filter_sharded(qb, ent, live)
+    got = bf_ops.batch_filter_sharded(qb.cuda(), ent.cuda(), live.cuda())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert not want[0].any() and not want[2, :, 400:].any()
+
+
+@needs_cuda
+def test_batch_filter_kernel_equals_plain_on_drawn_shapes():
+    @settings(max_examples=40, deadline=None, database=None)
+    @given(seed=st.integers(0, 2**32 - 1), s=st.integers(1, 4),
+           q=st.sampled_from([1, 2, 15, 16, 17, 63, 64, 65, 128, 130]),
+           e=st.integers(1, 1100), w=st.integers(1, 32),
+           density=st.sampled_from([0.0, 0.01, 0.1, 0.5, 1.0]))
+    def check(seed, s, q, e, w, density):
+        rng = np.random.default_rng(seed)
+        qb = _words(rng, (s, q, w), density)
+        ent = _words(rng, (s, e, w), density)
+        ent[:, ::2, -1] |= BIT31
+        live = torch.from_numpy(rng.random((s, e)) < 0.9)
+        want = bf_ops.batch_filter_sharded(qb, ent, live)
+        got = bf_ops.batch_filter_sharded(qb.cuda(), ent.cuda(), live.cuda())
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+    check()
 
 
 @needs_cuda
@@ -94,7 +143,10 @@ def test_bucketize_kernel_equals_plain(h):
 
 @needs_cuda
 @pytest.mark.parametrize("q,e,w", [(70, 300, 13), (1, 1, 2), (65, 129, 32),
-                                   (64, 1024, 13)])
+                                   (64, 1024, 13), (1, 257, 13), (16, 1, 1),
+                                   (17, 513, 8), (64, 255, 9), (65, 1001, 16),
+                                   (130, 129, 17), (33, 777, 24),
+                                   (64, 2049, 13)])
 def test_batch_filter_unsharded_kernel_equals_plain(q, e, w):
     rng = np.random.default_rng(q * 1000 + e)
     qb = _words(rng, (q, w), 0.02)
@@ -107,6 +159,25 @@ def test_batch_filter_unsharded_kernel_equals_plain(q, e, w):
     got = bf_ops.batch_filter(qb.cuda(), ent.cuda(), live.cuda())
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("s,e", [(2, 469), (3, 1001), (4, 257)])
+def test_batch_filter_unsharded_kernel_on_a_shard_view(s, e):
+    # a routed dispatch hands D shard k of an (S, E, W) stack: with odd E its
+    # base is 4 B aligned only, and its live bytes start at any byte
+    rng = np.random.default_rng(s + e)
+    qb = _words(rng, (64, 13), 0.03)
+    ent = _words(rng, (s, e, 13), 0.1)
+    ent[:, ::3, -1] = BIT31
+    live = torch.from_numpy(rng.random((s, e)) < 0.8)
+    ent_c, live_c = ent.cuda(), live.cuda()
+    assert any(ent_c[k].data_ptr() % 16 for k in range(1, s))
+    for k in range(1, s):
+        want = bf_ops.batch_filter(qb, ent[k], live[k])
+        got = bf_ops.batch_filter(qb.cuda(), ent_c[k], live_c[k])
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
 
 
 @needs_cuda

@@ -64,7 +64,8 @@ def _host(x) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("q,e,w", [(1, 1, 1), (9, 130, 13), (17, 513, 2),
-                                   (8, 64, 32)])
+                                   (8, 64, 32), (17, 129, 16), (17, 257, 17),
+                                   (17, 131, 32), (65, 3, 9)])
 def test_batch_filter_plain_equals_pallas(q, e, w):
     rng = np.random.default_rng(q * 100 + e)
     qb = _words(rng, (q, w), 0.03)

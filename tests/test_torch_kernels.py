@@ -37,7 +37,9 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C"))
 
 
-@pytest.mark.parametrize("s,q,e,w", [(3, 10, 130, 13), (1, 8, 128, 2)])
+@pytest.mark.parametrize("s,q,e,w", [(3, 10, 130, 13), (1, 8, 128, 2),
+                                     (2, 17, 129, 16), (1, 17, 257, 17),
+                                     (3, 5, 65, 32)])
 def test_batch_filter_plain_equals_pallas_on_shared_rows(s, q, e, w):
     rng = np.random.default_rng(s + q)
     queries = _words(rng, (q, w), 0.03)
