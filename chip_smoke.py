@@ -34,19 +34,23 @@ each of which exits nonzero on failure:
 3. Each kernel against its plain PyTorch version on the card, exactly, at
    the main paths' shapes and at ragged edges; then the kernel, the plain
    version and (where one exists) the one PyTorch call that computes the
-   same function are timed with CUDA events. For the joint-bucket filters
-   also a fill of an output of their shape and a read of their entry words,
-   the card's own streaming of the bytes they must move.
+   same function are timed with CUDA events. For the joint-bucket filters,
+   the single-query inspection and the bucket probe also the card's own
+   streaming of the bytes they must move (fills of their outputs, reads of
+   their inputs, a float32 -> int32 copy); for the bucket probe also its
+   time at shard 1's view of the build (a base 8 mod 16) and at a
+   predicate conversion's 128 values.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
 
 ``--baseline-csrc DIR`` also builds the CUDA sources in DIR (an earlier
 design of ``src/repro_torch/csrc``, with the same C entry points) and times
-its ``batch_filter`` (sharded and unsharded), ``compact_inspect`` and
-``page_inspect_many`` against the package's at the main paths' shapes, in
-turns (baseline, package, package, baseline), after checking that the two
-give the same results.
+its ``batch_filter`` (sharded and unsharded), ``compact_inspect``,
+``page_inspect_many``, ``page_inspect`` and ``bucketize`` (shard 0, shard
+1's view and 128 values) against the package's at the main paths' shapes,
+in turns (baseline, package, package, baseline), after checking that the
+two give the same results.
 """
 from __future__ import annotations
 
@@ -338,6 +342,26 @@ def main() -> int:
     if not torch.equal(library_bucketize().to(torch.int32),
                        bk_ops.bucketize_values(bvals, bounds, RESOLUTION)):
         fail("bucketize disagrees with torch.searchsorted")
+    # C again at shard 1's view of the build (base 8 mod 16) and at one
+    # predicate conversion's 2Q endpoints
+    n1 = min(sidx.spec.pages_per_shard,
+             max(table.num_pages - sidx.spec.page_lo(1), 0))
+    bvals1 = keys[1, :n1].reshape(-1)
+    ends = torch.cat([blo, bhi]).contiguous()
+    bk_cases = {"shard 1's view": bvals1, "128 values": ends}
+    for what, vals in bk_cases.items():
+        exact(torch, f"bucketize at {what}",
+              bk_ops.bucketize_values(vals, bounds, RESOLUTION),
+              bk_ops.bucketize_ref(vals, bounds, RESOLUTION))
+        vb, vhow = bound_ms(vals.numel() * 8 + bounds.numel() * 4, 0)
+        print(f"bucketize at {what}: " + json.dumps({
+            "n": vals.numel(), "base_mod_16": vals.data_ptr() % 16,
+            "ms": time_ms(torch, lambda: bk_ops.bucketize_values(
+                vals, bounds, RESOLUTION), 20),
+            "library_ms": time_ms(torch, lambda: torch.searchsorted(
+                bounds, vals, right=True).sub_(1).clamp_(0, RESOLUTION - 1),
+                20),
+            "bound_ms": vb, "bound_by": vhow}))
 
     # D: batch_filter (unsharded), at the HippoIndex batch's shapes
     hst = hidx.state
@@ -410,6 +434,7 @@ def main() -> int:
         e_args = (k1, v1, hmask, blo, bhi)
         a_args = (qb, shards.bitmaps, live)
         d_args = (hqb, hst.bitmaps, hlive)
+        s_args = (hkeys, hvalid, m1, lo1, hi1)
         compare_designs(torch, _build, args.baseline_csrc, {
             "batch_filter": (
                 lambda: bf_ops.batch_filter_sharded(*a_args),
@@ -426,7 +451,21 @@ def main() -> int:
             "page_inspect_many": (
                 lambda: pi_ops.page_inspect_many(*e_args),
                 lambda lib: baseline_page_inspect_many(torch, _build, lib,
-                                                       *e_args))})
+                                                       *e_args)),
+            "page_inspect": (
+                lambda: pi_ops.page_inspect(*s_args),
+                lambda lib: baseline_page_inspect(torch, _build, lib,
+                                                  *s_args)),
+            # both designs through the same binding, so that the host path
+            # of a 128-value launch is the same for the two
+            **{f"bucketize {what}": (
+                lambda v=v: baseline_bucketize(torch, _build,
+                                               _build.library(), v, bounds,
+                                               RESOLUTION),
+                lambda lib, v=v: baseline_bucketize(torch, _build, lib, v,
+                                                    bounds, RESOLUTION))
+               for what, v in (("shard 0", bvals), *bk_cases.items())}},
+            graphed=[f"bucketize {what}" for what in bk_cases])
 
     # each kernel's launches come from the run of the path it was ported for
     path_launches = {**{n: launches[n] for n in MAIN_KERNELS},
@@ -442,9 +481,27 @@ def main() -> int:
                "library_ms": time_ms(torch, fl, 20) if fl else None}
         print(f"{name}: {shapes} " + json.dumps(row))
         kernels.append(row)
+    filled = {name: torch.empty(shape, dtype=torch.bool, device=dev)
+              for name, shape in (("batch_filter", (s, q, e)),
+                                  ("batch_filter_unsharded", (q, he)),
+                                  ("page_inspect", (hp, hc)))}
+    ids = torch.empty_like(bvals, dtype=torch.int32)
+    bf_words = shards.bitmaps.reshape(-1)
+    hf_words = hst.bitmaps.reshape(-1)
+    hvalid_u8 = hvalid.view(torch.uint8)
     stream_yardsticks(torch, {
-        "batch_filter": (shards.bitmaps, (s, q, shards.bitmaps.shape[1])),
-        "batch_filter_unsharded": (hst.bitmaps, (q, he))})
+        "batch_filter": {
+            "fill_out_ms": lambda: filled["batch_filter"].fill_(True),
+            "read_in_ms": lambda: bf_words.max()},
+        "batch_filter_unsharded": {
+            "fill_out_ms": lambda: filled["batch_filter_unsharded"].fill_(
+                True),
+            "read_in_ms": lambda: hf_words.max()},
+        "page_inspect": {
+            "fill_out_ms": lambda: filled["page_inspect"].fill_(True),
+            "read_keys_ms": lambda: hkeys.max(),
+            "read_valid_ms": lambda: hvalid_u8.max()},
+        "bucketize": {"copy_f32_to_i32_ms": lambda: ids.copy_(bvals)}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -453,16 +510,11 @@ def main() -> int:
 
 
 def stream_yardsticks(torch, cases: dict) -> None:
-    """What the card takes to stream a kernel's bytes without its work: a
-    fill of an output of the kernel's shape and a read of its input (a max
-    over the words), each timed alone."""
-    out = {}
-    for name, (inp, shape) in cases.items():
-        buf = torch.empty(shape, dtype=torch.bool, device=inp.device)
-        flat = inp.reshape(-1)
-        out[name] = {"fill_out_ms": time_ms(torch, lambda: buf.fill_(True), 20),
-                     "read_in_ms": time_ms(torch, lambda: flat.max(), 20),
-                     "out_bytes": buf.numel(), "in_bytes": flat.numel() * 4}
+    """What the card takes to stream a kernel's bytes without its work: per
+    kernel, fills of outputs of its shapes, reads of its inputs (a max over
+    them) or a conversion copy, each timed alone."""
+    out = {name: {what: time_ms(torch, fn, 20) for what, fn in ops.items()}
+           for name, ops in cases.items()}
     print("streaming yardsticks: " + json.dumps(out))
 
 
@@ -511,21 +563,75 @@ def baseline_page_inspect_many(torch, _build, lib, keys, valid, page_mask,
     return out
 
 
-def compare_designs(torch, _build, csrc: Path, cases: dict) -> None:
+def baseline_page_inspect(torch, _build, lib, keys, valid, mask, lo, hi):
+    p, c = keys.shape
+    qual = torch.empty((p, c), dtype=torch.bool, device=keys.device)
+    counts = torch.empty((p,), dtype=torch.int32, device=keys.device)
+    interval = torch.stack([lo, hi])
+    _build.check(lib.hippo_page_inspect(
+        keys.data_ptr(), valid.data_ptr(), mask.data_ptr(),
+        interval.data_ptr(), p, c, qual.data_ptr(), counts.data_ptr(),
+        _build.stream_of(keys)), "baseline hippo_page_inspect")
+    return qual, counts
+
+
+def baseline_bucketize(torch, _build, lib, values, bounds, resolution):
+    out = torch.empty((values.numel(),), dtype=torch.int32,
+                      device=values.device)
+    _build.check(lib.hippo_bucketize(
+        values.data_ptr(), values.numel(), bounds.data_ptr(), bounds.numel(),
+        resolution, out.data_ptr(), _build.stream_of(values)),
+        "baseline hippo_bucketize")
+    return out
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Device time of ``fn`` with the host out of the way: ``iters`` calls
+    captured in one CUDA graph, one replay timed with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare_designs(torch, _build, csrc: Path, cases: dict,
+                    graphed=()) -> None:
     """Build the sources in ``csrc`` and time each case's baseline against
-    the package's kernel in turns: baseline, package, package, baseline."""
+    the package's kernel in turns: baseline, package, package, baseline.
+    Cases named in ``graphed`` (launches short enough that the host decides
+    a timed loop) are also timed in turns by ``graph_ms``."""
     t0 = time.perf_counter()
     lib = _build.load(_build.build(csrc.resolve()))
     print(f"baseline kernels from {csrc} built in "
           f"{time.perf_counter() - t0:.3f} s")
     out = {}
     for name, (new, old) in cases.items():
-        exact(torch, f"{name} against the baseline design", new(), old(lib))
+        got, want = new(), old(lib)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            exact(torch, f"{name} against the baseline design", g, w)
         turns = [time_ms(torch, lambda: old(lib), 20), time_ms(torch, new, 20),
                  time_ms(torch, new, 20), time_ms(torch, lambda: old(lib), 20)]
         out[name] = {"baseline_ms": [turns[0], turns[3]],
                      "ms": [turns[1], turns[2]],
                      "speedup": (turns[0] + turns[3]) / (turns[1] + turns[2])}
+        if name in graphed:
+            g = [graph_ms(torch, lambda: old(lib), 20), graph_ms(torch, new, 20),
+                 graph_ms(torch, new, 20), graph_ms(torch, lambda: old(lib), 20)]
+            out[name].update({"baseline_graph_ms": [g[0], g[3]],
+                              "graph_ms": [g[1], g[2]],
+                              "graph_speedup": (g[0] + g[3]) / (g[1] + g[2])})
     print("designs in turns: " + json.dumps(out))
 
 
@@ -665,7 +771,11 @@ def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
     shard's view of a stack. For the two inspections also keys and
     endpoints drawn from ``EDGE_VALUES`` (NaN, +-0, +-inf, many ties, lo ==
     hi and lo > hi), C=1, C above a warp and above one round of 2048 slots,
-    pads in ``sel`` and Q above one launch's query limit."""
+    pads in ``sel`` and Q above one launch's query limit. For the single
+    inspection also C around its 16-tuple runs, keys and valid past an
+    aligned base, and all or no pages selected; for the bucket probe N
+    around its vectors and its rank table, values past an aligned base,
+    tied, equal and infinite bounds, and H up to the kernel's limit."""
     rng = np.random.default_rng(1)
 
     def edge_case(shape, q):
@@ -771,6 +881,45 @@ def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
                   got[0], want[0])
             exact(torch, f"page_inspect ragged {(p, c, lo, hi)} counts",
                   got[1], want[1])
+    # E single at every run width against C, P off the 64-page tile, keys and
+    # valid at 1-3 elements past an aligned base (the kernel's narrow path),
+    # all and no pages selected, edge keys and intervals
+    for c in (1, 7, 15, 16, 17, 50, 300, 2100):
+        for p, off in ((1, 0), (65, 0), (130, 3), (64, 2), (67, 1)):
+            shape = (p, c)
+            keys, valid, los, his = edge_case((p * c + off,), 4)
+            keys = keys[off:].view(shape)
+            valid = valid[off:].view(shape)
+            for mask in (torch.from_numpy(rng.random(p) < 0.6).to(dev),
+                         torch.ones(p, dtype=torch.bool, device=dev),
+                         torch.zeros(p, dtype=torch.bool, device=dev)):
+                for lo, hi in zip(los, his):
+                    got = pi_ops.page_inspect(keys, valid, mask, lo, hi)
+                    want = pi_ops.page_inspect_ref(keys, valid, mask, lo, hi)
+                    for g, w in zip(got, want):
+                        exact(torch, f"page_inspect edge values {(p, c, off)}",
+                              g, w)
+    # C at N around its vector widths, values 1-3 elements past an aligned
+    # base, edge values, values equal to bounds, tied bounds, all bounds
+    # equal, +-inf end bounds, H up to the kernel's limit
+    for h in (1, 7, 64, 400, 12287):
+        b = np.cumsum(rng.random(h + 1) + 0.01).astype(np.float32)
+        tied = np.sort(rng.integers(0, 5, h + 1)).astype(np.float32)
+        ends = b.copy()
+        ends[0], ends[-1] = -np.inf, np.inf
+        for bnd in (b, tied, np.full(h + 1, 2.0, np.float32), ends):
+            pool = np.concatenate([EDGE_VALUES, bnd[:50], bnd[-50:]])
+            bounds = torch.from_numpy(bnd).to(dev)
+            for n in (1, 3, 4, 5, 127, 128, 129, 4_500_001):
+                for off in (0, 1, 2, 3):
+                    v = rng.choice(pool, n + off).astype(np.float32)
+                    if n > 1000:
+                        v[::2] = rng.uniform(b[0] - 5, b[-1] + 5, v[::2].size)
+                    vals = torch.from_numpy(v).to(dev)[off:]
+                    exact(torch, f"bucketize edge values H={h} N={n} "
+                          f"offset={off}",
+                          bk_ops.bucketize_values(vals, bounds, h),
+                          bk_ops.bucketize_ref(vals, bounds, h))
     for s, p, c, q in ((1, 40, 50, 1), (3, 70, 50, 65), (1, 5, 7, 3),
                        (2, 2049, 7, 64), (4, 130, 1, 9)):
         keys = torch.from_numpy(

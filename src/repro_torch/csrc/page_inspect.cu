@@ -14,13 +14,27 @@
 // (the page cardinality, 50) where the TPU padded every page to 128 lanes
 // with +inf keys and P to its block (src/repro/kernels/page_inspect/
 // ops.py:42-45); here the kernel masks its own edges and pads nothing.
-// Bound at SF10 (P=1,199,722, C=50): keys of the selected pages (at most
-// 240 MB), valid bytes (60 MB), the qual bytes out (60 MB) and the counts,
-// ~0.11 ms at the H100 SXM's published 3.35 TB/s (700 W) when every page is
-// selected. Design: one block per tile of 64 pages; threads walk the tile's
-// P*C tuples in storage order (coalesced key, valid and qual accesses),
-// pages whose mask is 0 skip the key and valid reads, and per-page counts
-// gather in shared memory before one store per page.
+// Bound: bytes. At SF10 (P=1,199,722, C=50, a 100-day query selecting
+// 1,178,688 pages) the keys of the selected pages (236 MB), the valid bytes
+// (60 MB), the qual bytes out (60 MB), the page mask and the counts: 0.108 ms
+// at the H100 SXM's published 3.35 TB/s (700 W). The first design of this
+// entry point walked one tuple per thread and paid four load/store
+// instructions a tuple, three of them 1 byte a lane, an integer division and
+// a shared atomic per hit: 0.329 ms. This one takes 0.125 ms, 1.16x the
+// bound and less than the card's own read of the keys and the valid bytes
+// plus a fill of qual (0.141 ms) (`python3 chip_smoke.py --baseline-csrc`,
+// NVIDIA H100 80GB HBM3, power limit 700.00 W).
+// Design: one block per tile of 64 pages (64 * C tuples, so a tile starts on
+// a 16-tuple boundary for any C); a thread takes a run of 16 consecutive
+// tuples. Where the three bases are 16 B aligned, a run is one 16 B load of
+// valid, at most four 16 B loads of keys (a quad of tuples none of whose
+// pages is selected is not read) and one 16 B store of qual; the tuple bits
+// (selected, valid, in the interval) ride in 16-bit masks and turn into
+// bytes by multiplication. A run's first page is one division; the run then
+// steps page by page (at most two pages for C >= 16), reading one mask byte
+// and adding at most one shared atomic (the popcount of its hits) per (run,
+// page). A misaligned base (a slice of a larger tensor) or a tile's partial
+// last run takes the same run with one access a tuple.
 //
 // `hippo_page_inspect_many` is the same test with a query and a shard axis:
 //   counts[s, q] = sum_{p, c} page_mask[s, q, p] && valid[s, p, c]
@@ -53,34 +67,120 @@ namespace {
 using namespace hippo_pc;
 
 constexpr int kTilePages = 64;    // pages per block (single query)
+constexpr int kRun = 16;          // consecutive tuples a thread takes
 
-__global__ void page_inspect_kernel(const float* __restrict__ keys,
-                                    const uint8_t* __restrict__ valid,
-                                    const uint8_t* __restrict__ mask,
-                                    const float* __restrict__ interval, int P,
-                                    int C, uint8_t* __restrict__ qual,
-                                    int32_t* __restrict__ counts) {
+// One bit per byte of w that is not 0, in byte order: the four 0/1 flags at
+// bits 0, 8, 16 and 24, times 2^7 + 2^14 + 2^21 + 2^28, land on bits 28-31
+// and nowhere else between them.
+__device__ __forceinline__ unsigned nonzero_bits(unsigned w) {
+  return ((__vcmpne4(w, 0u) & 0x01010101u) * 0x10204080u) >> 28;
+}
+
+// The inverse: four bits to four 0/1 bytes (bit i times 2^(7i) lands on bit
+// 8i; no two products overlap).
+__device__ __forceinline__ unsigned bit_bytes(unsigned nib) {
+  return (nib * 0x00204081u) & 0x01010101u;
+}
+
+__device__ __forceinline__ unsigned in_interval(float k, float lo, float hi,
+                                                int j) {
+  return (k >= lo && k <= hi) ? 1u << j : 0u;
+}
+
+// Run of 16 tuples at 16 B aligned addresses: the hit bits of `sel` tuples.
+__device__ __forceinline__ unsigned run_wide(const float* keys,
+                                             const uint8_t* valid,
+                                             uint8_t* qual, unsigned sel,
+                                             float lo, float hi) {
+  const uint4 v = *reinterpret_cast<const uint4*>(valid);
+  float4 k[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    k[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if ((sel >> (4 * q)) & 0xfu) {
+      k[q] = *reinterpret_cast<const float4*>(keys + 4 * q);
+    }
+  }
+  const unsigned vb = nonzero_bits(v.x) | nonzero_bits(v.y) << 4 |
+                      nonzero_bits(v.z) << 8 | nonzero_bits(v.w) << 12;
+  unsigned kb = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    kb |= in_interval(k[q].x, lo, hi, 4 * q) |
+          in_interval(k[q].y, lo, hi, 4 * q + 1) |
+          in_interval(k[q].z, lo, hi, 4 * q + 2) |
+          in_interval(k[q].w, lo, hi, 4 * q + 3);
+  }
+  const unsigned hit = sel & vb & kb;
+  *reinterpret_cast<uint4*>(qual) =
+      make_uint4(bit_bytes(hit & 0xfu), bit_bytes((hit >> 4) & 0xfu),
+                 bit_bytes((hit >> 8) & 0xfu), bit_bytes(hit >> 12));
+  return hit;
+}
+
+// The same run, len <= 16 tuples at any address, one access a tuple.
+__device__ __forceinline__ unsigned run_narrow(const float* keys,
+                                               const uint8_t* valid,
+                                               uint8_t* qual, int len,
+                                               unsigned sel, float lo,
+                                               float hi) {
+  unsigned hit = 0;
+  for (int j = 0; j < len; ++j) {
+    if (((sel >> j) & 1u) && valid[j] != 0) hit |= in_interval(keys[j], lo,
+                                                               hi, j);
+  }
+  for (int j = 0; j < len; ++j) qual[j] = (hit >> j) & 1u;
+  return hit;
+}
+
+// kWide: keys, valid and qual all start on 16 B boundaries.
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads)
+    page_inspect_kernel(const float* __restrict__ keys,
+                        const uint8_t* __restrict__ valid,
+                        const uint8_t* __restrict__ mask,
+                        const float* __restrict__ interval, int P, int C,
+                        uint8_t* __restrict__ qual,
+                        int32_t* __restrict__ counts) {
   __shared__ int cnt[kTilePages];
   const int p0 = blockIdx.x * kTilePages;
   const int np = min(kTilePages, P - p0);
-  if (threadIdx.x < kTilePages) cnt[threadIdx.x] = 0;
+  for (int i = threadIdx.x; i < np; i += blockDim.x) cnt[i] = 0;
   __syncthreads();
   const float lo = interval[0];
   const float hi = interval[1];
   const int64_t base = (int64_t)p0 * C;
+  const float* kt = keys + base;
+  const uint8_t* vt = valid + base;
+  uint8_t* qt = qual + base;
+  const uint8_t* mt = mask + p0;
   const int n = np * C;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int p = i / C;
-    uint8_t hit = 0;
-    if (mask[p0 + p] != 0 && valid[base + i] != 0) {
-      const float k = keys[base + i];
-      hit = (k >= lo && k <= hi) ? 1 : 0;
+  for (int first = threadIdx.x * kRun; first < n;
+       first += blockDim.x * kRun) {
+    const int len = min(kRun, n - first);
+    const int pf = first / C;            // the run's first page, once a run
+    const int cf = first - pf * C;
+    // The run's tuples on selected pages: one mask byte per page it touches.
+    unsigned sel = 0;
+    for (int j = 0, p = pf, c = cf; j < len; ++p, c = 0) {
+      const int seg = min(C - c, len - j);
+      if (__ldg(mt + p)) sel |= ((1u << seg) - 1u) << j;
+      j += seg;
     }
-    qual[base + i] = hit;
-    if (hit) atomicAdd(&cnt[p], 1);
+    const unsigned hit =
+        kWide && len == kRun
+            ? run_wide(kt + first, vt + first, qt + first, sel, lo, hi)
+            : run_narrow(kt + first, vt + first, qt + first, len, sel, lo,
+                         hi);
+    for (int j = 0, p = pf, c = cf; j < len; ++p, c = 0) {
+      const int seg = min(C - c, len - j);
+      const int k = __popc(hit & (((1u << seg) - 1u) << j));
+      if (k) atomicAdd(&cnt[p], k);
+      j += seg;
+    }
   }
   __syncthreads();
-  if (threadIdx.x < np) counts[p0 + threadIdx.x] = cnt[threadIdx.x];
+  for (int i = threadIdx.x; i < np; i += blockDim.x) counts[p0 + i] = cnt[i];
 }
 
 template <int kSteps, bool kPacked>
@@ -221,9 +321,20 @@ extern "C" int hippo_page_inspect(const float* keys, const uint8_t* valid,
                                   int P, int C, uint8_t* qual, int32_t* counts,
                                   cudaStream_t stream) {
   if (P > 0 && C > 0) {
-    page_inspect_kernel<<<(P + kTilePages - 1) / kTilePages, kThreads, 0,
-                          stream>>>(keys, valid, mask, interval, P, C, qual,
-                                    counts);
+    // A tile's 4C runs, in whole warps, at most kThreads a block.
+    const int runs = (4 * C + 31) / 32 * 32;
+    const int threads = runs < kThreads ? runs : kThreads;
+    const unsigned blocks = (P + kTilePages - 1) / kTilePages;
+    const bool wide = ((reinterpret_cast<uintptr_t>(keys) |
+                        reinterpret_cast<uintptr_t>(valid) |
+                        reinterpret_cast<uintptr_t>(qual)) & 15) == 0;
+    if (wide) {
+      page_inspect_kernel<true><<<blocks, threads, 0, stream>>>(
+          keys, valid, mask, interval, P, C, qual, counts);
+    } else {
+      page_inspect_kernel<false><<<blocks, threads, 0, stream>>>(
+          keys, valid, mask, interval, P, C, qual, counts);
+    }
   }
   return (int)cudaGetLastError();
 }

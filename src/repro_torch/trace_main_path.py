@@ -8,9 +8,12 @@ Builds the sharded index ``chip_smoke.py`` builds (TPC-H SF10
 ``HippoIndex`` over the same column, serves one warm-up batch per engine (so
 the compact slab bucket has widened), then profiles one steady batch of 64
 predicates per engine: compact without row ids and with ``top_k=32``, dense
-on the HippoIndex, and routed and fused dense on the sharded index. Prints,
-per batch, the wall time, the device-busy share of that window (summed
-kernel time over wall time) and the operators by device time.
+on the HippoIndex, and routed and fused dense on the sharded index; then one
+single-query ``HippoIndex.search`` (a 100-day predicate, after a warm-up
+search) and the build of one shard (``core.index.build`` on shard 1's view:
+the bucket probe, the page bits and the host grouping scan). Prints, per
+window, the wall time, the device-busy share of that window (summed kernel
+time over wall time) and the operators by device time.
 """
 from __future__ import annotations
 
@@ -21,7 +24,9 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.core import index as hix
 from repro_torch.core.hippo import HippoIndex
+from repro_torch.core.histogram import Histogram
 from repro_torch.core.partition import ShardedHippoIndex
 from repro_torch.core.predicate import Predicate
 from repro_torch.runtime.engine import QueryEngine
@@ -73,19 +78,36 @@ def main() -> None:
         for p in _preds(rng, 64):
             eng.submit(p)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.run_batch()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        rows = _kernels(prof)
-        busy_us = sum(e.self_device_time_total for e in rows)
-        print(f"{name}: batch wall {wall_us / 1e3:.3f} ms, device busy "
-              f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%} of the window)")
-        for e in rows[:15]:
-            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} "
-                  f"calls  {e.key[:80]}")
+        _profiled(name, eng.run_batch)
+    one = Predicate.between(1000.0, 1099.0)
+    hidx.search(Predicate.between(10.0, 109.0))          # warm-up
+    torch.cuda.synchronize()
+    _profiled("search (one 100-day query)", lambda: hidx.search(one))
+    keys, valid = sidx._slabs()
+    n1 = min(sidx.spec.pages_per_shard,
+             max(table.num_pages - sidx.spec.page_lo(1), 0))
+    hist = Histogram(sidx.state.shards.bounds[1])
+    _profiled("build of shard 1", lambda: hix.build(sidx.cfg, hist,
+                                                     keys[1, :n1],
+                                                     valid[1, :n1]))
+
+
+def _profiled(name: str, fn) -> None:
+    """Profile one call of ``fn`` (ending in a synchronize) and print its
+    wall time, device-busy share and top device operators."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _kernels(prof)
+    busy_us = sum(e.self_device_time_total for e in rows)
+    print(f"{name}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%} of the window)")
+    for e in rows[:15]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} "
+              f"calls  {e.key[:80]}")
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ from repro_torch.kernels.batch_filter import ops as bf_ops
 from repro_torch.kernels.bitmap_and import ops as ba_ops
 from repro_torch.kernels.bucketize import ops as bk_ops
 from repro_torch.kernels.compact_inspect import ops as ci_ops
+from repro_torch.kernels.page_inspect import kernel as pi_kernel
 from repro_torch.kernels.page_inspect import ops as pi_ops
 from repro_torch.runtime.engine import QueryEngine
 from repro_torch.storage.table import PagedTable
@@ -302,6 +303,136 @@ def test_page_inspect_many_kernel_equals_plain_on_edge_values():
         got = pi_ops.page_inspect_many(*(t.cuda() for t in (keys, valid,
                                                             page_mask, los,
                                                             his)))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+    check()
+
+
+def _at_offset(t, off):
+    """``t`` on the card, ``off`` elements past a 16 B aligned base (a slice
+    of a larger tensor, as a shard's view is)."""
+    big = torch.zeros(t.numel() + off, dtype=t.dtype, device="cuda")
+    view = big[off:].view(t.shape)
+    view.copy_(t.cuda())
+    assert big.data_ptr() % 16 == 0
+    return view
+
+
+def _page_inspect_on_card(keys, valid, mask, lo, hi, offsets=(0, 0, 0)):
+    """The kernel with keys, valid and the qual output each at its own
+    offset from an aligned base (the wrapper allocates qual aligned, so the
+    binding is called directly)."""
+    p, c = keys.shape
+    k = _at_offset(keys, offsets[0])
+    v = _at_offset(valid, offsets[1])
+    qual = _at_offset(torch.zeros((p, c), dtype=torch.bool), offsets[2])
+    counts = torch.full((p,), -1, dtype=torch.int32, device="cuda")
+    interval = torch.tensor([lo, hi], dtype=torch.float32, device="cuda")
+    pi_kernel.launch(k, v, mask.cuda(), interval, qual, counts)
+    torch.cuda.synchronize()
+    return qual.cpu(), counts.cpu()
+
+
+# Page widths at and around the kernel's 16-tuple runs (a run spans up to 16
+# pages at C = 1, two pages from C = 16 on, and a 64-page tile takes several
+# rounds of a block's runs at C = 2100); P off the 64-page tile and P = 1.
+@needs_cuda
+@pytest.mark.parametrize("c", [1, 7, 15, 16, 17, 50, 300, 2100])
+@pytest.mark.parametrize("p", [1, 63, 130])
+def test_page_inspect_kernel_at_run_edges(p, c):
+    rng = np.random.default_rng(p * 10000 + c)
+    keys, valid = _edge_table(rng, (p, c))
+    for mask in (torch.from_numpy(rng.random(p) < 0.6),
+                 torch.ones(p, dtype=torch.bool),
+                 torch.zeros(p, dtype=torch.bool)):
+        for lo, hi in ((1.0, 3.0), (2.0, 2.0), (3.0, 1.0), (-np.inf, np.inf),
+                       (-0.0, 0.0), (np.nan, 1.0), (-3.4e38, 3.4e38)):
+            want = pi_ops.page_inspect(keys, valid, mask, lo, hi)
+            for offsets in ((0, 0, 0), (1, 2, 3), (3, 1, 0), (2, 0, 1)):
+                got = _page_inspect_on_card(keys, valid, mask, lo, hi,
+                                            offsets)
+                assert torch.equal(got[0], want[0]), offsets
+                assert torch.equal(got[1], want[1]), offsets
+
+
+@needs_cuda
+def test_page_inspect_kernel_equals_plain_on_drawn_edges():
+    @settings(max_examples=40, deadline=None, database=None)
+    @given(seed=st.integers(0, 2**32 - 1), p=st.integers(1, 200),
+           c=st.sampled_from([1, 2, 7, 15, 16, 17, 31, 50, 64, 300]),
+           offsets=st.tuples(*[st.integers(0, 3)] * 3),
+           lo=st.sampled_from(list(EDGE_VALUES)),
+           hi=st.sampled_from(list(EDGE_VALUES)),
+           density=st.sampled_from([0.0, 0.3, 1.0]))
+    def check(seed, p, c, offsets, lo, hi, density):
+        rng = np.random.default_rng(seed)
+        keys, valid = _edge_table(rng, (p, c))
+        mask = torch.from_numpy(rng.random(p) < density)
+        want = pi_ops.page_inspect(keys, valid, mask, lo, hi)
+        got = _page_inspect_on_card(keys, valid, mask, lo, hi, offsets)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+    check()
+
+
+def _bounds(kind, rng, h):
+    b = np.cumsum(rng.random(h + 1) + 0.01).astype(np.float32)
+    if kind == "tied":                    # runs of equal bounds
+        b = np.sort(rng.integers(0, max(2, h // 8), h + 1)).astype(np.float32)
+    elif kind == "equal":                 # a zero span
+        b = np.full(h + 1, 2.0, np.float32)
+    elif kind == "infinite ends":
+        b[0], b[-1] = -np.inf, np.inf
+    elif kind == "signed zeros":          # -0.0 and +0.0 among the bounds
+        b = np.sort(np.concatenate([rng.uniform(-3, 3, h - 1),
+                                    [-0.0, 0.0]])).astype(np.float32)
+    return b
+
+
+# N around the 4- and 2-value vectors and the launch that takes the rank
+# table (the large odd N), values 1-3 elements past an aligned base (heads,
+# tails, and the 8-mod-16 base of an odd shard's view), NaN, +-0, +-inf and
+# values equal to bounds.
+@needs_cuda
+@pytest.mark.parametrize("kind", ["increasing", "tied", "equal",
+                                  "infinite ends", "signed zeros"])
+@pytest.mark.parametrize("h", [1, 7, 64, 400, 12287])
+def test_bucketize_kernel_at_edges(h, kind):
+    rng = np.random.default_rng(h)
+    b = _bounds(kind, rng, h)
+    bounds = torch.from_numpy(b)
+    fin = b[np.isfinite(b)]
+    pool = np.concatenate([EDGE_VALUES, b]).astype(np.float32)
+    for n in (1, 3, 4, 5, 127, 128, 129, 4_500_001):
+        v = rng.choice(pool, n)
+        if n > 1000 and fin.size:
+            v[::2] = rng.uniform(fin[0] - 1, fin[-1] + 1, v[::2].size)
+        vals = torch.from_numpy(v.astype(np.float32))
+        want = bk_ops.bucketize_ref(vals.cuda(), bounds.cuda(), h).cpu()
+        for off in (0, 1, 2, 3):
+            got = bk_ops.bucketize_values(_at_offset(vals, off),
+                                          bounds.cuda(), h)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (n, off)
+
+
+@needs_cuda
+def test_bucketize_kernel_equals_plain_on_drawn_edges():
+    @settings(max_examples=40, deadline=None, database=None)
+    @given(seed=st.integers(0, 2**32 - 1), n=st.integers(1, 3000),
+           off=st.integers(0, 3), h=st.sampled_from([1, 2, 7, 64, 400]),
+           kind=st.sampled_from(["increasing", "tied", "equal",
+                                 "infinite ends", "signed zeros"]))
+    def check(seed, n, off, h, kind):
+        rng = np.random.default_rng(seed)
+        b = _bounds(kind, rng, h)
+        pool = np.concatenate([EDGE_VALUES, b, rng.uniform(-5, 400, 20)])
+        vals = torch.from_numpy(rng.choice(pool, n).astype(np.float32))
+        want = bk_ops.bucketize_values(vals, torch.from_numpy(b), h)
+        got = bk_ops.bucketize_values(_at_offset(vals, off),
+                                      torch.from_numpy(b).cuda(), h)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
 

@@ -81,3 +81,25 @@ def test_page_inspect_many_plain_equals_pallas_on_edge_values(seed, s, p, c,
                                   interpret=True)
             want[k, j] = int(np.asarray(counts).sum())
     assert np.array_equal(got.numpy(), want)
+
+
+# The single-query plain version (the tuple mask and the page counts) against
+# the Pallas kernel: C around the CUDA kernel's 16-tuple runs, P off its
+# 64-page tile, masks drawn, all set and all clear, edge keys and intervals.
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("p,c", [(1, 1), (65, 7), (3, 15), (63, 16),
+                                 (5, 17), (70, 50), (2, 300)])
+def test_page_inspect_plain_equals_pallas_on_edge_values(seed, p, c):
+    rng, keys, valid, lo, hi = _edge_case(seed, (p, c), 6)
+    masks = (rng.random(p) < 0.6, np.ones(p, bool), np.zeros(p, bool))
+    for mask in masks:
+        for a, b in zip(lo, hi):
+            qual, counts = pi_ops.page_inspect(
+                torch.from_numpy(keys), torch.from_numpy(valid),
+                torch.from_numpy(mask), float(a), float(b))
+            want_q, want_c = pallas_pi(jnp.asarray(keys), jnp.asarray(valid),
+                                       jnp.asarray(mask), a, b,
+                                       interpret=True)
+            assert qual.dtype == torch.bool and counts.dtype == torch.int32
+            assert np.array_equal(qual.numpy(), np.asarray(want_q))
+            assert np.array_equal(counts.numpy(), np.asarray(want_c))

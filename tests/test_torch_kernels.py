@@ -103,6 +103,42 @@ def test_bucketize_plain_equals_pallas():
     assert np.array_equal(got.numpy(), ref)
 
 
+EDGE_VALUES = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, -1.0, 1.0, 2.0,
+                        3.0, 3.4e38, -3.4e38], np.float32)
+
+
+def _edge_bounds(kind, rng, h):
+    b = np.cumsum(rng.random(h + 1) + 0.01).astype(np.float32)
+    if kind == "tied":
+        b = np.sort(rng.integers(0, max(2, h // 8), h + 1)).astype(np.float32)
+    elif kind == "equal":
+        b = np.full(h + 1, 2.0, np.float32)
+    elif kind == "infinite ends":
+        b[0], b[-1] = -np.inf, np.inf
+    elif kind == "signed zeros":
+        b = np.sort(np.concatenate([rng.uniform(-3, 3, h - 1),
+                                    [-0.0, 0.0]])).astype(np.float32)
+    return b
+
+
+# The plain version against the Pallas kernel on the edges the CUDA kernel's
+# rank table must keep: NaN, +-0 and +-inf values, values equal to bounds,
+# runs of tied bounds, a zero span, +-inf end bounds, signed zeros among the
+# bounds; N off the Pallas tile and the CUDA kernel's vectors.
+@pytest.mark.parametrize("kind", ["increasing", "tied", "equal",
+                                  "infinite ends", "signed zeros"])
+@pytest.mark.parametrize("h,n", [(1, 5), (7, 129), (64, 1027), (400, 2003)])
+def test_bucketize_plain_equals_pallas_on_edge_values(h, n, kind):
+    rng = np.random.default_rng(h + n)
+    bounds = _edge_bounds(kind, rng, h)
+    pool = np.concatenate([EDGE_VALUES, bounds, rng.uniform(-5, 450, 50)])
+    vals = rng.choice(pool, n).astype(np.float32)
+    ref = np.asarray(pallas_bk(jnp.asarray(vals), jnp.asarray(bounds), h,
+                               interpret=True))
+    got = bucketize_values(_t(vals), _t(bounds), h)
+    assert np.array_equal(got.numpy(), ref)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     f = torch.zeros(4)
     with pytest.raises(TypeError):
