@@ -31,15 +31,37 @@ each of which exits nonzero on failure:
    the sharded index: every count equals brute force, and on the sharded
    index every ticket's pages_inspected and entries_matched equal the
    compact engine's. Every kernel of these paths must have launched.
+   2c. Maintenance on phase 2's sharded index, with the counters set to 0
+   just before and read just after: 64 eager ``insert`` calls, one
+   ``insert_batch`` of ``--rows``/1000 rows (new pages of the last shard;
+   the table grows past its capacity), then through
+   ``QueryEngine(drain_policy="sync")`` 64 ``write``s and one ``delete`` of
+   one day, which vacuums every shard; then 8 rounds of one ``write`` and
+   one compact batch of 64 predicates, each batch timed with and without a
+   write before it (a write drops the table's device views, so the batch
+   after it uploads them again). Phase 2's 256 predicates then run through
+   both compact engines again and every count and row-id list must equal a
+   brute-force scan of the mutated table on the card; the bucket probe, the
+   filter and the inspection must have launched. A ``maintenance`` JSON
+   line carries the insert, write, vacuum and read-after-write times and
+   the peak device memory of the mutations and of the whole phase. The
+   bucket probe's inputs in the phase (the insert batch's values, each
+   vacuum's re-probed tuples, single values) are kept for phase 3.
 3. Each kernel against its plain PyTorch version on the card, exactly, at
    the main paths' shapes and at ragged edges; then the kernel, the plain
    version and (where one exists) the one PyTorch call that computes the
-   same function are timed with CUDA events. For the joint-bucket filters,
+   same function are timed with CUDA events (the bucket probe with its
+   ``nan_last`` flag set, as the core calls it, and held against its plain
+   version with NaN values with the flag set and clear). For the joint-bucket
+   filters,
    the single-query inspection and the bucket probe also the card's own
    streaming of the bytes they must move (fills of their outputs, reads of
    their inputs, a float32 -> int32 copy); for the bucket probe also its
-   time at shard 1's view of the build (a base 8 mod 16) and at a
-   predicate conversion's 128 values.
+   time at shard 1's view of the build (a base 8 mod 16), at a predicate
+   conversion's 128 values and at each input phase 2c gave it (held there
+   with ``nan_last`` set and clear, at the input's own offset within 16
+   bytes). Phase 3 runs after phase 2c, so the filter, the inspection and
+   the bucket probe are held and timed on the mutated index.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -50,11 +72,13 @@ its ``batch_filter`` (sharded and unsharded), ``compact_inspect``,
 ``page_inspect_many``, ``page_inspect`` and ``bucketize`` (shard 0, shard
 1's view and 128 values) against the package's at the main paths' shapes,
 in turns (baseline, package, package, baseline), after checking that the
-two give the same results.
+two give the same results. An earlier ``bucketize.cu`` without the
+``nan_last`` argument is bound at its own signature.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -77,6 +101,8 @@ TOP_K = 32
 NUM_PREDS = 256
 WIDTHS = (0, 9, 99)              # one day, 10 days, 100 days (inclusive)
 NUM_SEARCHES = 24                # single-query searches of phase 2b
+EAGER_INSERTS = 64               # eager inserts and engine writes of phase 2c
+READ_AFTER_WRITE = 8             # phase 2c's rounds of one write + one batch
 TPCH_SF = 0.01                   # selectivity of the TPC-H windows
 # Kernels of the main path (phase 2) and those ported for the dense and
 # single-query paths (phase 2b); each kernel's launches are read from the run
@@ -204,35 +230,13 @@ def main() -> int:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     dev = sidx.device
-    serve = {}
-    tickets = {}
-    for top_k in (0, TOP_K):
-        eng = QueryEngine(sidx, batch=BATCH, top_k=top_k)
-        tk = [eng.submit(p) for p in preds]
-        t0 = time.perf_counter()
-        eng.run_batch()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        first = (eng.stats.compact_fallbacks, eng._compact_bucket)
-        eng.drain()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        rest = time.perf_counter() - t1
-        if first[0] == 0 or first[1] <= 64:
+    serve, tickets = serve_compact(torch, QueryEngine, sidx, preds)
+    for top_k, row in serve.items():
+        if (row["first_batch_fallbacks"] == 0
+                or row["bucket_after_first"] <= 64):
             fail(f"top_k={top_k}: first batch did not fall back and widen "
-                 f"(fallbacks {first[0]}, bucket {first[1]})")
-        st = eng.stats
-        serve[top_k] = {"queries": len(preds), "seconds": dt,
-                        "qps": len(preds) / dt,
-                        "first_batch_s": t1 - t0,
-                        "qps_after_first": (len(preds) - BATCH) / rest,
-                        "first_batch_fallbacks": first[0],
-                        "bucket_after_first": first[1],
-                        "batches": st.batches,
-                        "compact_fallbacks": st.compact_fallbacks,
-                        "gather_occupancy": st.gather_occupancy,
-                        "selected_page_ratio": st.selected_page_ratio}
-        tickets[top_k] = tk
+                 f"(fallbacks {row['first_batch_fallbacks']}, bucket "
+                 f"{row['bucket_after_first']})")
     launches = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print("main path: " + json.dumps({
@@ -244,33 +248,19 @@ def main() -> int:
     for name in MAIN_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
-
-    # brute force on the card: every count and every row-id list
-    keys_all = table.device_keys(device=dev).reshape(-1)
-    valid_all = table.device_valid(device=dev).reshape(-1)
-    los, his = intervals(preds, dev)
-    brute_counts = []
-    for q, p in enumerate(preds):
-        hit = valid_all & (keys_all >= los[q]) & (keys_all <= his[q])
-        count = int(hit.sum())
-        brute_counts.append(count)
-        ids = torch.nonzero(hit)[:TOP_K, 0].cpu().numpy()
-        for top_k, tk in tickets.items():
-            t = tk[q]
-            if not t.done or t.count != count:
-                fail(f"top_k={top_k} query {q} {p}: count {t.count} != "
-                     f"brute force {count}")
-        if not np.array_equal(tickets[TOP_K][q].row_ids, ids):
-            fail(f"query {q} {p}: row ids differ from the brute-force "
-                 f"first {TOP_K}")
+    brute_counts = check_brute_force(torch, table, dev, intervals, preds,
+                                     tickets)
     print(f"main path checked: {len(preds)} counts x 2 engines and "
           f"{len(preds)} row-id lists equal brute force")
-    del keys_all, valid_all
 
     # -- 2b. the dense and single-query paths --------------------------------
     dense = dense_paths(torch, args, K, Predicate, intervals, QueryEngine,
                         sidx, preds, brute_counts, tickets[0])
     hidx = dense["hidx"]
+
+    # -- 2c. maintenance on the sharded index ---------------------------------
+    probes = maintenance_phase(torch, args, K, intervals, QueryEngine, sidx,
+                               preds)
 
     # -- 3. kernels against their plain versions, then timed -----------------
     shards = sidx.state.shards
@@ -323,10 +313,10 @@ def main() -> int:
                    None, nb, how,
                    f"S={s} Q={q} M={m} C={c} pages_read={pages_read} "
                    f"active_pairs={pairs}"))
-    # C: bucketize
+    # C: bucketize, with nan_last set as the core calls it
     err_c = exact(torch, "bucketize",
-                  bk_ops.bucketize_values(bvals, bounds, RESOLUTION),
-                  bk_ops.bucketize_ref(bvals, bounds, RESOLUTION))
+                  bk_ops.bucketize_values(bvals, bounds, RESOLUTION, True),
+                  bk_ops.bucketize_ref(bvals, bounds, RESOLUTION, True))
     n = bvals.numel()
     nb, how = bound_ms(n * 8 + bounds.numel() * 4,
                        n * math.ceil(math.log2(bounds.numel() + 1)))
@@ -336,11 +326,14 @@ def main() -> int:
         return ids.clamp_(0, RESOLUTION - 1)
 
     report.append(("bucketize", err_c,
-                   lambda: bk_ops.bucketize_values(bvals, bounds, RESOLUTION),
-                   lambda: bk_ops.bucketize_ref(bvals, bounds, RESOLUTION),
+                   lambda: bk_ops.bucketize_values(bvals, bounds, RESOLUTION,
+                                                   True),
+                   lambda: bk_ops.bucketize_ref(bvals, bounds, RESOLUTION,
+                                                True),
                    library_bucketize, nb, how, f"N={n} H={RESOLUTION}"))
     if not torch.equal(library_bucketize().to(torch.int32),
-                       bk_ops.bucketize_values(bvals, bounds, RESOLUTION)):
+                       bk_ops.bucketize_values(bvals, bounds, RESOLUTION,
+                                               True)):
         fail("bucketize disagrees with torch.searchsorted")
     # C again at shard 1's view of the build (base 8 mod 16) and at one
     # predicate conversion's 2Q endpoints
@@ -351,16 +344,32 @@ def main() -> int:
     bk_cases = {"shard 1's view": bvals1, "128 values": ends}
     for what, vals in bk_cases.items():
         exact(torch, f"bucketize at {what}",
-              bk_ops.bucketize_values(vals, bounds, RESOLUTION),
-              bk_ops.bucketize_ref(vals, bounds, RESOLUTION))
+              bk_ops.bucketize_values(vals, bounds, RESOLUTION, True),
+              bk_ops.bucketize_ref(vals, bounds, RESOLUTION, True))
         vb, vhow = bound_ms(vals.numel() * 8 + bounds.numel() * 4, 0)
         print(f"bucketize at {what}: " + json.dumps({
             "n": vals.numel(), "base_mod_16": vals.data_ptr() % 16,
             "ms": time_ms(torch, lambda: bk_ops.bucketize_values(
-                vals, bounds, RESOLUTION), 20),
+                vals, bounds, RESOLUTION, True), 20),
             "library_ms": time_ms(torch, lambda: torch.searchsorted(
                 bounds, vals, right=True).sub_(1).clamp_(0, RESOLUTION - 1),
                 20),
+            "bound_ms": vb, "bound_by": vhow}))
+    # C at the inputs phase 2c gave it, at their own offsets within 16 B
+    for (n, mod), (vals, pbounds, h) in sorted(probes.items()):
+        vals = at_offset(torch, vals, mod // 4)
+        for nan_last in (True, False):
+            exact(torch, f"bucketize at maintenance N={n} base_mod_16={mod} "
+                  f"nan_last={nan_last}",
+                  bk_ops.bucketize_values(vals, pbounds, h, nan_last),
+                  bk_ops.bucketize_ref(vals, pbounds, h, nan_last))
+        vb, vhow = bound_ms(n * 8 + pbounds.numel() * 4, 0)
+        print("bucketize at maintenance: " + json.dumps({
+            "n": n, "base_mod_16": vals.data_ptr() % 16,
+            "ms": time_ms(torch, lambda: bk_ops.bucketize_values(
+                vals, pbounds, h), 20),
+            "library_ms": time_ms(torch, lambda: torch.searchsorted(
+                pbounds, vals, right=True).sub_(1).clamp_(0, h - 1), 20),
             "bound_ms": vb, "bound_by": vhow}))
 
     # D: batch_filter (unsharded), at the HippoIndex batch's shapes
@@ -430,6 +439,8 @@ def main() -> int:
     print("kernels equal their plain versions at the main paths' shapes and "
           "at ragged edges")
     if args.baseline_csrc is not None:
+        # the baseline's hippo_bucketize with or without nan_last (None)
+        b_flag = True if nan_flag(args.baseline_csrc) else None
         b_args = (keys, valid, sel, sel_mask, blo, bhi)
         e_args = (k1, v1, hmask, blo, bhi)
         a_args = (qb, shards.bitmaps, live)
@@ -457,13 +468,14 @@ def main() -> int:
                 lambda lib: baseline_page_inspect(torch, _build, lib,
                                                   *s_args)),
             # both designs through the same binding, so that the host path
-            # of a 128-value launch is the same for the two
+            # of a 128-value launch is the same for the two; the package's
+            # with nan_last set, as the core calls it
             **{f"bucketize {what}": (
                 lambda v=v: baseline_bucketize(torch, _build,
                                                _build.library(), v, bounds,
-                                               RESOLUTION),
-                lambda lib, v=v: baseline_bucketize(torch, _build, lib, v,
-                                                    bounds, RESOLUTION))
+                                               RESOLUTION, True),
+                lambda lib, v=v: baseline_bucketize(
+                    torch, _build, lib, v, bounds, RESOLUTION, b_flag))
                for what, v in (("shard 0", bvals), *bk_cases.items())}},
             graphed=[f"bucketize {what}" for what in bk_cases])
 
@@ -507,6 +519,202 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def serve_compact(torch, QueryEngine, sidx, preds) -> tuple[dict, dict]:
+    """``preds`` through ``QueryEngine(batch=64)`` and ``QueryEngine(batch=64,
+    top_k=32)`` on ``sidx``: per top_k the serving numbers and the
+    tickets."""
+    serve, tickets = {}, {}
+    for top_k in (0, TOP_K):
+        eng = QueryEngine(sidx, batch=BATCH, top_k=top_k)
+        tk = [eng.submit(p) for p in preds]
+        t0 = time.perf_counter()
+        eng.run_batch()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        first = (eng.stats.compact_fallbacks, eng._compact_bucket)
+        eng.drain()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rest = time.perf_counter() - t1
+        st = eng.stats
+        serve[top_k] = {"queries": len(preds), "seconds": dt,
+                        "qps": len(preds) / dt,
+                        "first_batch_s": t1 - t0,
+                        "qps_after_first": (len(preds) - BATCH) / rest,
+                        "first_batch_fallbacks": first[0],
+                        "bucket_after_first": first[1],
+                        "batches": st.batches,
+                        "compact_fallbacks": st.compact_fallbacks,
+                        "gather_occupancy": st.gather_occupancy,
+                        "selected_page_ratio": st.selected_page_ratio}
+        tickets[top_k] = tk
+    return serve, tickets
+
+
+def check_brute_force(torch, table, dev, intervals, preds, tickets) -> list:
+    """Every ticket's count, and the top_k engine's row ids, against a
+    brute-force scan of ``table`` on the card; returns the counts."""
+    keys_all = table.device_keys(device=dev).reshape(-1)
+    valid_all = table.device_valid(device=dev).reshape(-1)
+    los, his = intervals(preds, dev)
+    brute_counts = []
+    for q, p in enumerate(preds):
+        hit = valid_all & (keys_all >= los[q]) & (keys_all <= his[q])
+        count = int(hit.sum())
+        brute_counts.append(count)
+        ids = torch.nonzero(hit)[:TOP_K, 0].cpu().numpy()
+        for top_k, tk in tickets.items():
+            t = tk[q]
+            if not t.done or t.count != count:
+                fail(f"top_k={top_k} query {q} {p}: count {t.count} != "
+                     f"brute force {count}")
+        if not np.array_equal(tickets[TOP_K][q].row_ids, ids):
+            fail(f"query {q} {p}: row ids differ from the brute-force "
+                 f"first {TOP_K}")
+    return brute_counts
+
+
+def maintenance_phase(torch, args, K, intervals, QueryEngine, sidx,
+                      preds) -> dict:
+    """Phase 2c: eager inserts, one batch, sync engine writes, a delete
+    with its vacuum and rounds of read after write on the sharded index,
+    then the compact engines checked against brute force on the mutated
+    table. Returns the bucket probe's inputs of the phase, one of each
+    (size, base mod 16): {(n, mod): (values, bounds, resolution)}."""
+    from repro_torch.core import histogram as hg
+    rng = np.random.default_rng(args.seed + 2)
+    table = sidx.table
+    dev = sidx.device
+    probe, probes = hg.bucketize_values, {}
+
+    def recording(values, bounds, resolution, nan_last=True):
+        key = (values.numel(), values.data_ptr() % 16)
+        if key not in probes:
+            probes[key] = (values.clone(), bounds, resolution)
+        return probe(values, bounds, resolution, nan_last)
+
+    hg.bucketize_values = recording
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    start = dataclasses.asdict(sidx.counters)
+    start_entries = sidx.num_entries
+    pages0, cap0 = table.num_pages, table.capacity_pages
+    lat = []
+    for v in rng.integers(0, SHIPDATE_DAYS, EAGER_INSERTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sidx.insert(float(v))
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    batch = rng.integers(0, SHIPDATE_DAYS, max(args.rows // 1000, 1)).astype(
+        np.float32)
+    first_page = table.append_pages(1)[0]
+    t0 = time.perf_counter()
+    sidx.insert_batch(batch)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    eng = QueryEngine(sidx, drain_policy="sync")
+    t0 = time.perf_counter()
+    for v in rng.integers(0, SHIPDATE_DAYS, EAGER_INSERTS):
+        eng.write(float(v))
+    torch.cuda.synchronize()
+    writes_s = time.perf_counter() - t0
+    vac = {}
+    vacuum = sidx.vacuum
+
+    def timed_vacuum():
+        vac["dirty_pages"] = table.num_dirty
+        vac["dirty_shards"] = sidx.dirty_shards().tolist()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vac["entries_resummarized"] = vacuum()
+        torch.cuda.synchronize()
+        vac["seconds"] = time.perf_counter() - t
+
+    sidx.vacuum = timed_vacuum
+    day = float(rng.integers(0, SHIPDATE_DAYS))
+    t0 = time.perf_counter()
+    deleted = eng.delete(day, day)
+    torch.cuda.synchronize()
+    delete_s = time.perf_counter() - t0
+    del sidx.vacuum
+    if not vac or table.num_dirty or deleted == 0:
+        fail(f"delete of day {day}: {deleted} rows deleted, vacuum ran: "
+             f"{bool(vac)}, {table.num_dirty} dirty pages left")
+    if (eng.stats.writes, eng.stats.deletes) != (EAGER_INSERTS, deleted):
+        fail(f"engine counted {eng.stats.writes} writes and "
+             f"{eng.stats.deletes} deletes")
+    peak_maintenance = torch.cuda.max_memory_allocated()
+    # read after write: one sync write, then one compact batch, then the
+    # same batch again with no write before it; the first round (the
+    # engine widens its gather bucket) is left out of the medians
+    reader = QueryEngine(sidx, batch=BATCH)
+    rounds = {"after_write": [], "no_write": []}
+    for v in rng.integers(0, SHIPDATE_DAYS, READ_AFTER_WRITE + 1):
+        eng.write(float(v))
+        for what in rounds:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for p in preds[:BATCH]:
+                reader.submit(p)
+            reader.run_batch()
+            torch.cuda.synchronize()
+            rounds[what].append(time.perf_counter() - t)
+    hg.bucketize_values = probe
+    serve, tickets = serve_compact(torch, QueryEngine, sidx, preds)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    counters = {k: v - start[k]
+                for k, v in dataclasses.asdict(sidx.counters).items()}
+    want = 2 * EAGER_INSERTS + READ_AFTER_WRITE + 1 + batch.size
+    if counters["inserts"] != want:
+        fail(f"maintenance counted {counters['inserts']} inserts, not {want}")
+    print("maintenance: " + json.dumps({
+        "eager_inserts": EAGER_INSERTS,
+        "eager_insert_ms_mean": 1e3 * sum(lat) / len(lat),
+        "eager_insert_ms_median": 1e3 * float(np.median(lat)),
+        "eager_insert_ms_min": 1e3 * min(lat),
+        "batch_rows": int(batch.size), "batch_s": batch_s,
+        "batch_rows_per_s": batch.size / batch_s,
+        "batch_first_page": int(first_page), "pages_before": pages0,
+        "pages_after": table.num_pages, "capacity_pages_before": cap0,
+        "capacity_pages_after": table.capacity_pages,
+        "engine_writes": EAGER_INSERTS,
+        "engine_write_ms_mean": 1e3 * writes_s / EAGER_INSERTS,
+        "deleted_day": day, "deleted_rows": deleted, "delete_s": delete_s,
+        "vacuum": vac,
+        "read_after_write": {
+            "rounds": READ_AFTER_WRITE, "batch": BATCH,
+            **{f"{k}_ms_median": 1e3 * float(np.median(v[1:]))
+               for k, v in rounds.items()},
+            **{f"{k}_ms": [1e3 * x for x in v[1:]]
+               for k, v in rounds.items()}},
+        "entries_before": start_entries,
+        "entries_after": sidx.num_entries, "counters": counters,
+        "serve": {f"top_k={k}": v for k, v in serve.items()},
+        "launches": launches, "memory_allocated_before": held,
+        "max_memory_allocated_maintenance": peak_maintenance,
+        "max_memory_allocated": peak}))
+    for name in MAIN_KERNELS:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched in the maintenance phase")
+    check_brute_force(torch, table, dev, intervals, preds, tickets)
+    print(f"maintenance checked: {len(preds)} counts x 2 engines and "
+          f"{len(preds)} row-id lists equal brute force on the mutated table")
+    return probes
+
+
+def at_offset(torch, t, off: int):
+    """A copy of ``t`` on the card, ``off`` elements past a 16 B aligned
+    base (a slice of a larger tensor, as a shard's view is)."""
+    big = torch.zeros(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = big[off:]
+    view.copy_(t)
+    return view
 
 
 def stream_yardsticks(torch, cases: dict) -> None:
@@ -575,12 +783,22 @@ def baseline_page_inspect(torch, _build, lib, keys, valid, mask, lo, hi):
     return qual, counts
 
 
-def baseline_bucketize(torch, _build, lib, values, bounds, resolution):
+def nan_flag(csrc: Path) -> bool:
+    """Whether the ``hippo_bucketize`` of the sources in ``csrc`` takes the
+    ``nan_last`` argument (the sources before it do not)."""
+    return "nan_last" in (csrc / "bucketize.cu").read_text()
+
+
+def baseline_bucketize(torch, _build, lib, values, bounds, resolution,
+                       nan_last):
+    """``hippo_bucketize`` of ``lib`` at its own signature: with the
+    ``nan_last`` argument, or without it where ``nan_last`` is None."""
     out = torch.empty((values.numel(),), dtype=torch.int32,
                       device=values.device)
+    flag = () if nan_last is None else (int(nan_last),)
     _build.check(lib.hippo_bucketize(
         values.data_ptr(), values.numel(), bounds.data_ptr(), bounds.numel(),
-        resolution, out.data_ptr(), _build.stream_of(values)),
+        resolution, *flag, out.data_ptr(), _build.stream_of(values)),
         "baseline hippo_bucketize")
     return out
 
@@ -612,7 +830,11 @@ def compare_designs(torch, _build, csrc: Path, cases: dict,
     Cases named in ``graphed`` (launches short enough that the host decides
     a timed loop) are also timed in turns by ``graph_ms``."""
     t0 = time.perf_counter()
-    lib = _build.load(_build.build(csrc.resolve()))
+    signatures = dict(_build.SIGNATURES)
+    if not nan_flag(csrc):
+        signatures["hippo_bucketize"] = [
+            a for i, a in enumerate(signatures["hippo_bucketize"]) if i != 5]
+    lib = _build.load(_build.build(csrc.resolve()), signatures)
     print(f"baseline kernels from {csrc} built in "
           f"{time.perf_counter() - t0:.3f} s")
     out = {}
@@ -775,7 +997,8 @@ def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
     inspection also C around its 16-tuple runs, keys and valid past an
     aligned base, and all or no pages selected; for the bucket probe N
     around its vectors and its rank table, values past an aligned base,
-    tied, equal and infinite bounds, and H up to the kernel's limit."""
+    tied, equal and infinite bounds, H up to the kernel's limit, and NaN
+    values with ``nan_last`` set and clear."""
     rng = np.random.default_rng(1)
 
     def edge_case(shape, q):
@@ -899,9 +1122,11 @@ def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
                     for g, w in zip(got, want):
                         exact(torch, f"page_inspect edge values {(p, c, off)}",
                               g, w)
-    # C at N around its vector widths, values 1-3 elements past an aligned
-    # base, edge values, values equal to bounds, tied bounds, all bounds
-    # equal, +-inf end bounds, H up to the kernel's limit
+    # C at N around its vector widths, N of the vector launch without the
+    # rank table (an insert batch, one vacuum's re-probed pages), values 1-3
+    # elements past an aligned base (2: 8 mod 16), edge values, values equal
+    # to bounds, tied bounds, all bounds equal, +-inf end bounds, H up to the
+    # kernel's limit
     for h in (1, 7, 64, 400, 12287):
         b = np.cumsum(rng.random(h + 1) + 0.01).astype(np.float32)
         tied = np.sort(rng.integers(0, 5, h + 1)).astype(np.float32)
@@ -910,16 +1135,19 @@ def ragged_edges(torch, bf_ops, ci_ops, bk_ops, ba_ops, pi_ops, dev) -> None:
         for bnd in (b, tied, np.full(h + 1, 2.0, np.float32), ends):
             pool = np.concatenate([EDGE_VALUES, bnd[:50], bnd[-50:]])
             bounds = torch.from_numpy(bnd).to(dev)
-            for n in (1, 3, 4, 5, 127, 128, 129, 4_500_001):
+            for n in (1, 3, 4, 5, 127, 128, 129, 4096, 59_986, 290_001,
+                      4_500_001):
                 for off in (0, 1, 2, 3):
                     v = rng.choice(pool, n + off).astype(np.float32)
                     if n > 1000:
                         v[::2] = rng.uniform(b[0] - 5, b[-1] + 5, v[::2].size)
                     vals = torch.from_numpy(v).to(dev)[off:]
-                    exact(torch, f"bucketize edge values H={h} N={n} "
-                          f"offset={off}",
-                          bk_ops.bucketize_values(vals, bounds, h),
-                          bk_ops.bucketize_ref(vals, bounds, h))
+                    for nan_last in (False, True):
+                        exact(torch, f"bucketize edge values H={h} N={n} "
+                              f"offset={off} nan_last={nan_last}",
+                              bk_ops.bucketize_values(vals, bounds, h,
+                                                      nan_last),
+                              bk_ops.bucketize_ref(vals, bounds, h, nan_last))
     for s, p, c, q in ((1, 40, 50, 1), (3, 70, 50, 65), (1, 5, 7, 3),
                        (2, 2049, 7, 64), (4, 130, 1, 9)):
         keys = torch.from_numpy(

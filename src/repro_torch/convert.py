@@ -16,6 +16,8 @@ Keys of ``arrays``:
   resolution, density, page_card, max_slots, relocate_on_update
                                                             the HippoConfig
   keys, valid, num_pages, fill                               the PagedTable
+  dirty, num_dirty  optional: the table's VACUUM notes (deletes pending
+                    vacuum); absent, the table is clean
 """
 from __future__ import annotations
 
@@ -47,11 +49,15 @@ def _config(arrays: dict) -> HippoConfig:
 
 def _table(arrays: dict, page_card: int) -> PagedTable:
     keys = np.asarray(arrays["keys"], np.float32)
+    dirty = np.asarray(arrays.get("dirty", np.zeros(keys.shape[0], bool)),
+                       bool).copy()
+    num_pages = int(arrays["num_pages"])
+    num_dirty = int(arrays.get("num_dirty", dirty[:num_pages].sum()))
     return PagedTable(page_card=page_card, capacity_pages=keys.shape[0],
                       keys=keys.copy(),
                       valid=np.asarray(arrays["valid"], bool).copy(),
-                      num_pages=int(arrays["num_pages"]),
-                      fill=int(arrays["fill"]))
+                      dirty=dirty, num_pages=num_pages,
+                      fill=int(arrays["fill"]), num_dirty=num_dirty)
 
 
 def from_arrays(arrays: dict, device=None) -> ShardedHippoIndex:

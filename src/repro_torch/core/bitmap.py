@@ -73,6 +73,50 @@ def popcount(words: torch.Tensor) -> torch.Tensor:
     return x.sum(dim=-1).to(torch.int32)
 
 
+def density(words: torch.Tensor, num_bits: int) -> torch.Tensor:
+    """Partial histogram density (§4.3): kept buckets / total buckets, in
+    float32 as the reference divides (``f32(popcount) / f32(H)``)."""
+    return popcount(words).to(torch.float32) / float(num_bits)
+
+
+def _bit_word(idx: int) -> int:
+    """The int32 word holding only bit ``idx % 32`` (bit 31 wraps)."""
+    b = idx % WORD_BITS
+    return (1 << b) - (1 << 32 if b == WORD_BITS - 1 else 0)
+
+
+def set_bit(words: torch.Tensor, idx: int) -> torch.Tensor:
+    """A copy of ``words`` with bit ``idx`` set in the trailing word axis."""
+    out = words.clone()
+    out[..., idx // WORD_BITS] |= _bit_word(idx)
+    return out
+
+
+def get_bit(words: torch.Tensor, idx: int) -> torch.Tensor:
+    """Bit ``idx`` of the trailing word axis, as 0/1 int32."""
+    return (words[..., idx // WORD_BITS] >> (idx % WORD_BITS)) & 1
+
+
+def union(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a | b
+
+
+def or_reduce(words: torch.Tensor) -> torch.Tensor:
+    """OR of the rows of (N, W) words: (W,), on their device. PyTorch has no
+    bitwise-or reduction, so rows are OR-ed pairwise, halving N each step
+    (log2 N steps, twice the words' bytes in all)."""
+    x = words
+    if x.shape[0] == 0:
+        return x.new_zeros(x.shape[1:])
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        y = x[:half] | x[half:2 * half]
+        if x.shape[0] % 2:
+            y[0] |= x[-1]
+        x = y
+    return x[0].clone()
+
+
 def any_joint(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """True where bitmaps share at least one set bit (joint buckets, §3.2).
 

@@ -24,16 +24,32 @@ from repro_torch.core import bitmap as bm
 from repro_torch.core.histogram import Histogram, bucketize
 
 
+def tuple_bucket_ids(hist: Histogram, keys: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """The bucket each tuple of (P, C) ``keys`` sets in its page's bitmap:
+    (P*C,) int64, one bucket-probe launch.
+
+    As in the reference, an invalid tuple sets bucket H-1: its
+    ``page_bucket_bits`` scatters invalid tuples at index -1 under
+    ``mode="drop"``, and JAX wraps a negative index before it drops, so -1
+    lands on H-1 (a page with a deleted tuple, or the padding of a partial
+    last page, keeps bucket H-1 in its summary; ROADMAP.md, faults).
+    """
+    ids = bucketize(hist, keys.reshape(-1)).to(torch.int64)
+    return torch.where(valid.reshape(-1), ids, hist.resolution - 1)
+
+
 def page_bucket_bits(hist: Histogram, keys: torch.Tensor, valid: torch.Tensor,
                      resolution: int) -> torch.Tensor:
     """Per-page bucket membership: (num_pages, H) bool on ``keys.device``.
 
-    keys/valid: (num_pages, page_card). Invalid tuples hit no bucket.
+    keys/valid: (num_pages, page_card); invalid tuples set bucket H-1, as in
+    the reference (``tuple_bucket_ids``).
     """
     num_pages, page_card = keys.shape
-    ids = bucketize(hist, keys.reshape(-1)).to(torch.int64)       # (N,)
+    ids = tuple_bucket_ids(hist, keys, valid)                      # (N,)
     page = torch.arange(num_pages * page_card, device=keys.device) // page_card
-    flat = (page * resolution + ids)[valid.reshape(-1)]
+    flat = page * resolution + ids
     bits = torch.zeros((num_pages, resolution), dtype=torch.bool,
                        device=keys.device)
     bits.view(-1)[flat] = True

@@ -1,16 +1,20 @@
-"""High-level Hippo index API — the paper's CREATE INDEX / SELECT surface
-(§7.1) over the functional core (port of ``repro.core.hippo``, read side).
+"""High-level Hippo index API — the paper's CREATE INDEX / SELECT / INSERT /
+DELETE / VACUUM surface (§7.1) over the functional core (port of
+``repro.core.hippo``).
 
     table = PagedTable.from_values(values, page_card=50)
     idx = HippoIndex.create(table, resolution=400, density=0.2)  # the card
     res = idx.search(Predicate.between(1000, 2000))
+    idx.insert(1234.0)                  # eager (Algorithm 3)
+    table.delete_where(500, 600)        # marks pages dirty
+    idx.vacuum()                        # lazy re-summarize (§5.2)
 
 ``HippoIndex`` is the unsharded index: one ``HippoState`` over the whole
 table on ``device`` (None: the card). Its searches are the single-query
 ``search`` (with the exact tuple mask), the dense batch ``search_batch`` and
-the gather paths ``search_compact``/``search_compact_batch``. Inserts and
-vacuum come with the maintenance slice (ROADMAP.md, queue 1 item 9) and
-raise ``NotImplementedError`` until then.
+the gather paths ``search_compact``/``search_compact_batch``. ``insert``,
+the atomic ``insert_batch`` and ``vacuum`` keep the reference's maintenance
+counters and its capacity refusals.
 
 The sampling helpers (``sample_keys``, ``sample_histogram``) and
 ``MaintenanceCounters`` are shared with ``core.partition``.
@@ -58,11 +62,6 @@ class MaintenanceCounters:
     entries_created: int = 0
     vacuums: int = 0
     entries_resummarized: int = 0
-
-
-def _maintenance_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue "
-                               f"1 item 9: maintenance)")
 
 
 @dataclass
@@ -148,16 +147,94 @@ class HippoIndex:
         """Slab width at which the gather path can never truncate."""
         return max(self.table.num_pages, 1)
 
-    # -- maintenance (not ported yet) ----------------------------------------
+    # -- maintenance ---------------------------------------------------------
+
+    def _require_slot_capacity(self, num_slots: int | None = None) -> None:
+        """Refuse maintenance that would overflow the physical slot array,
+        checked before any table or index state changes."""
+        if num_slots is None:
+            num_slots = int(self.state.num_slots)
+        if num_slots + 1 > self.cfg.max_slots:
+            raise RuntimeError(
+                f"index at slot capacity ({num_slots}/"
+                f"{self.cfg.max_slots}); rebuild with a larger max_slots")
 
     def insert(self, value: float) -> None:
-        raise _maintenance_not_ported("HippoIndex.insert")
+        """Eager single-tuple insert: table append + Algorithm 3 update."""
+        _, opens_page = self.table.next_page_id()
+        if opens_page or self.cfg.relocate_on_update:
+            # only the new-entry and relocation paths consume a slot
+            self._require_slot_capacity()
+        page_id, _ = self.table.insert(value)
+        before = int(self.state.num_entries)
+        self.state, after = hix.insert_tuples(self.cfg, self.state, [value],
+                                              [page_id])
+        self.counters.inserts += 1
+        self.counters.entries_touched += 1
+        self.counters.entries_created += after - before
 
     def insert_batch(self, values: np.ndarray) -> None:
-        raise _maintenance_not_ported("HippoIndex.insert_batch")
+        """Vectorized insert. Atomic: either the whole batch lands or, on
+        slot-capacity exhaustion, table and index are rolled back to their
+        pre-batch snapshot before the raise (no update writes into the
+        snapshot's tensors).
+
+        Tuples landing on already-summarized pages take one fused OR;
+        tuples past ``summarized_until`` replay the eager path on the host
+        (``core.index.insert_tuples``), with the capacity check per tuple at
+        actual need, as in the reference.
+        """
+        values = np.asarray(values, np.float32).ravel()
+        if values.size == 0:
+            return
+        snap_state = self.state
+        snap_pages, snap_fill = self.table.num_pages, self.table.fill
+        try:
+            self._insert_batch_apply(values)
+        except RuntimeError:
+            self.state = snap_state
+            self.table.truncate_to(snap_pages, snap_fill)
+            raise
+        self.counters.inserts += len(values)
+
+    def _insert_batch_apply(self, values: np.ndarray) -> None:
+        pages = self.table.append(values)
+        old = pages <= int(self.state.summarized_until)
+        ids = hg.bucketize(self.state.histogram,
+                           torch.from_numpy(values).to(self.device))
+        if old.any():
+            sel = torch.from_numpy(old).to(self.device)
+            self.state = hix.or_existing(
+                self.cfg, self.state, ids[sel],
+                torch.from_numpy(pages[old]).to(self.device))
+        if old.all():
+            return
+
+        new = torch.from_numpy(~old).to(self.device)
+        self.state, _ = hix.insert_tuples(
+            self.cfg, self.state, None, pages[~old], ids=ids[new],
+            on_full=self._require_slot_capacity)
 
     def vacuum(self) -> int:
-        raise _maintenance_not_ported("HippoIndex.vacuum")
+        """Lazy maintenance after deletes (§5.2): re-summarize the entries
+        whose ranges hold dirty pages, located with one search of the sorted
+        list. Returns entries re-summarized."""
+        dirty_pages = np.flatnonzero(self.table.dirty[: self.table.num_pages])
+        if dirty_pages.size == 0:
+            return 0
+        slots, _ = hix.locate_slots(self.state,
+                                    torch.from_numpy(dirty_pages))
+        affected = torch.zeros((self.cfg.max_slots,), dtype=torch.bool,
+                               device=self.device)
+        affected[slots.long()] = True
+        keys, valid = self._views()
+        self.state = hix.resummarize_slots(self.cfg, self.state, keys, valid,
+                                           affected)
+        self.table.clear_dirty(dirty_pages)
+        n = int(affected.sum())
+        self.counters.vacuums += 1
+        self.counters.entries_resummarized += n
+        return n
 
     # -- introspection -------------------------------------------------------
 

@@ -4,8 +4,9 @@
 Bucket convention as in the reference: ``H`` buckets with boundaries
 ``bounds`` of shape (H+1,); bucket ``i`` covers [bounds[i], bounds[i+1]),
 the last bucket is closed on the right, and out-of-range values clamp to the
-edge buckets. ``bucketize`` goes through the bucket-probe kernel
-(``kernels.bucketize``) on CUDA and its plain version on the CPU.
+edge buckets, and a NaN value lands in bucket H-1. ``bucketize`` goes
+through the bucket-probe kernel (``kernels.bucketize``) on CUDA and its
+plain version on the CPU.
 
 ``build`` reproduces ``jnp.quantile`` bit for bit. ``np.quantile`` and
 ``torch.quantile`` do not: on a float32 sample XLA computes the linear
@@ -96,7 +97,11 @@ def build_uniform(lo: float, hi: float, resolution: int,
 
 
 def bucketize(hist: Histogram, values: torch.Tensor) -> torch.Tensor:
-    """Map values to bucket ids in [0, H-1] (binary search, §4.2)."""
+    """Map values to bucket ids in [0, H-1] (binary search, §4.2).
+
+    As the reference's ``searchsorted(side="right") - 1``, clipped: a NaN
+    value sorts after every bound, into bucket H-1 (the kernel's
+    ``nan_last``)."""
     return bucketize_values(values.to(torch.float32).contiguous(),
                             hist.bounds, hist.resolution)
 

@@ -1,5 +1,5 @@
-"""Hippo index — structure, build and search (port of ``repro.core.index``,
-read side).
+"""Hippo index — structure, build, search and maintenance (port of
+``repro.core.index``).
 
 State layout as in the reference, as tensors on one device; a sharded index
 stacks every field along a leading shard axis (``core.partition``):
@@ -31,8 +31,25 @@ reference vmaps:
                         slab copy) and, with ``top_k``, row ids derived from
                         the kernel's per-(query, page) counts
 
-Maintenance (inserts, vacuum, remaps) and the writer's staged overlay come
-with later slices (ROADMAP.md, queue 1 items 9-10).
+Maintenance (§5) returns new states and never writes into the one it was
+given (a caller may hold it as a rollback snapshot):
+
+  insert_tuples         Algorithm 3 for a run of tuples: one bucket-probe
+                        launch for the run and one copy of the scalars and the
+                        last entry to the host, the branches (set a bit in
+                        place or relocate; extend or create) replayed on host
+                        mirrors, then one scatter per field. ``insert_tuple``
+                        is the run of one.
+  insert_batch_existing the batch path for tuples on summarized pages: one
+                        sorted-list search for every tuple, then the OR of the
+                        deduplicated (slot, word, bit) triples
+  resummarize_slots     vacuum (§5.2): the affected entries' page ranges, as
+                        the reference assigns them, re-bucketized and OR-ed
+                        into fresh bitmaps the same way
+  resummarize_shard     the same for every live entry under new bounds
+
+The writer's staged overlay comes with the writer (ROADMAP.md, queue 1 item
+10).
 """
 from __future__ import annotations
 
@@ -44,7 +61,7 @@ import torch
 
 from repro_torch.core import bitmap as bm
 from repro_torch.core import grouping
-from repro_torch.core.histogram import Histogram
+from repro_torch.core.histogram import Histogram, bucketize
 from repro_torch.kernels.batch_filter import batch_filter, batch_filter_sharded
 from repro_torch.kernels.bitmap_and import bitmap_and_any
 from repro_torch.kernels.compact_inspect import compact_inspect
@@ -234,6 +251,19 @@ def _pages_global(page_mask: torch.Tensor) -> torch.Tensor:
 # Single-query and dense batch search
 # ---------------------------------------------------------------------------
 
+def locate_slots(state: HippoState, page_ids: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``locate_slot`` for a tensor of pages: one binary search of the
+    sorted list for all of them. Returns (physical_slots, logical_pos), int32
+    tensors of ``page_ids``' shape."""
+    ls = _logical_starts(_one_shard(state))[0]
+    pages = page_ids.to(device=ls.device, dtype=torch.int32).reshape(-1)
+    pos = (torch.searchsorted(ls, pages, right=True) - 1).clamp(min=0)
+    slots = state.sorted_order[pos]
+    return (slots.reshape(page_ids.shape),
+            pos.to(torch.int32).reshape(page_ids.shape))
+
+
 def locate_slot(state: HippoState, page_id) -> tuple[torch.Tensor,
                                                      torch.Tensor]:
     """Binary search the sorted list for the entry owning ``page_id`` (§5.3).
@@ -241,11 +271,9 @@ def locate_slot(state: HippoState, page_id) -> tuple[torch.Tensor,
     Returns (physical_slot, logical_pos) as 0-d int32 tensors. The caller
     guarantees the page is summarized (page_id <= summarized_until).
     """
-    ls = _logical_starts(_one_shard(state))[0]
-    page = torch.as_tensor(page_id, dtype=torch.int32, device=ls.device)
-    pos = (torch.searchsorted(ls, page.reshape(1), right=True)[0] - 1
-           ).clamp(min=0).to(torch.int32)
-    return state.sorted_order[pos.long()], pos
+    page = torch.as_tensor(page_id, dtype=torch.int32,
+                           device=state.starts.device)
+    return locate_slots(state, page)
 
 
 def search(state: HippoState, query_bitmap: torch.Tensor, keys: torch.Tensor,
@@ -466,6 +494,329 @@ def search_compact(state: HippoState, query_bitmap: torch.Tensor,
     res = search_compact_many(state, query_bitmap[None], keys, valid, lo, hi,
                               max_selected=max_selected)
     return res.counts[0], res.pages_inspected[0], res.truncated[0]
+
+
+# ---------------------------------------------------------------------------
+# Maintenance — eager insert (§5.1, Algorithm 3)
+# ---------------------------------------------------------------------------
+
+def _row_int(words: np.ndarray) -> int:
+    """A bitmap's words (W,) as one Python int (bit b = bucket b)."""
+    return int.from_bytes(np.ascontiguousarray(words).astype("<u4").tobytes(),
+                          "little")
+
+
+def _int_rows(rows, w: int) -> np.ndarray:
+    """The inverse of ``_row_int`` for a list of ints: (k, W) int32."""
+    raw = b"".join(x.to_bytes(4 * w, "little") for x in rows)
+    return np.frombuffer(bytearray(raw), "<i4").reshape(-1, w)
+
+
+class _Alg3:
+    """Algorithm 3 replayed on host mirrors of one state.
+
+    Holds the scalars, the last logical entry (slot, bitmap as a Python int,
+    start, end), and every row (bitmap, start, end, liveness) and sorted-list
+    position the replay wrote; a row it must read and has not written is
+    copied from the state. ``state`` gives the new state: the writes applied
+    to copies, one scatter per field.
+    """
+
+    def __init__(self, cfg: HippoConfig, state: HippoState, head: np.ndarray):
+        self.cfg, self.old = cfg, state
+        self.ne, self.ns, self.su, self.last = (int(x) for x in head[:4])
+        self.lbits = _row_int(head[6:6 + cfg.words].view(np.uint32))
+        self.lstart, self.lend = int(head[4]), int(head[5])
+        self.bits: dict[int, int] = {}      # written rows
+        self.starts: dict[int, int] = {}
+        self.ends: dict[int, int] = {}
+        self.live: dict[int, bool] = {}
+        self.order: dict[int, int] = {}     # written sorted-list positions
+        self.ne0 = self.ne
+        self._logical = None                # initial logical starts, on demand
+
+    def run(self, ids, pages, su_floor: int = -1, on_full=None) -> None:
+        """Insert tuple k of bucket ``ids[k]`` on page ``pages[k]``, in
+        order. With ``on_full``, a tuple that may take a slot (every tuple
+        under relocation, else one past ``max(summarized_until,
+        su_floor)``) while all ``max_slots`` are taken calls
+        ``on_full(num_slots)``, which raises: the reference's check before
+        each tuple. The last entry lives in locals: it takes nearly every
+        tuple of an append."""
+        cfg = self.cfg
+        relocate, limit = cfg.relocate_on_update, cfg.max_slots
+        h, dmax = np.float32(cfg.resolution), np.float32(cfg.density)
+        bits, starts, ends, live, order = (self.bits, self.starts, self.ends,
+                                           self.live, self.order)
+        ne, ns, su, last = self.ne, self.ns, self.su, self.last
+        lbits, lstart, lend = self.lbits, self.lstart, self.lend
+        for b, p in zip(ids, pages):
+            if on_full is not None and ns + 1 > limit and (
+                    relocate or p > max(su, su_floor)):
+                on_full(ns)
+            bit = 1 << b
+            if p > su:                           # new page: extend or create
+                dens = (np.float32(lbits.bit_count()) / h if ne > 0
+                        else np.float32(2.0))    # empty index: create
+                if dens < dmax:
+                    lbits |= bit
+                    lend = p
+                else:
+                    bits[last], starts[last], ends[last] = lbits, lstart, lend
+                    last, lbits, lstart, lend = ns, bit, p, p
+                    live[last] = True
+                    order[ne] = last
+                    ne += 1
+                    ns += 1
+                su = p
+            elif ne > 0 and p >= lstart:         # the last entry's page
+                if lbits & bit:
+                    continue                     # bit already set
+                if relocate:
+                    # §5.1: the updated entry moves to a new slot at the end
+                    # of the index, the sorted list points at it (Fig. 4)
+                    bits[last], starts[last], ends[last] = lbits, lstart, lend
+                    live[last] = False
+                    last = ns
+                    live[last] = True
+                    order[ne - 1] = last
+                    ns += 1
+                lbits |= bit
+            else:                                # an earlier entry's page
+                self.ne, self.ns, self.su, self.last = ne, ns, su, last
+                self.lbits, self.lstart, self.lend = lbits, lstart, lend
+                self._earlier(bit, p)
+                ne, ns = self.ne, self.ns
+        self.ne, self.ns, self.su, self.last = ne, ns, su, last
+        self.lbits, self.lstart, self.lend = lbits, lstart, lend
+
+    def _row(self, slot: int) -> tuple[int, int, int]:
+        """Slot's (bitmap, start, end): written, else copied from the state."""
+        if slot == self.last:
+            return self.lbits, self.lstart, self.lend
+        if slot not in self.bits:
+            st = self.old
+            self.bits[slot] = _row_int(st.bitmaps[slot].cpu().numpy())
+            self.starts[slot] = int(st.starts[slot])
+            self.ends[slot] = int(st.ends[slot])
+        return self.bits[slot], self.starts[slot], self.ends[slot]
+
+    def _earlier(self, bit: int, page: int) -> None:
+        """A tuple on a page before the last entry's start (an insert never
+        appends there, but ``insert_tuple`` allows it): locate the entry
+        through the sorted list, whose starts never move (relocation keeps
+        them, created entries append)."""
+        if self._logical is None:
+            ls = _logical_starts(_one_shard(self.old))[0]
+            self._logical = ls.cpu().numpy()
+        slot_at = [self.order[k] if k in self.order
+                   else int(self.old.sorted_order[k])
+                   for k in range(self.ne0, self.ne)]
+        ls = np.concatenate([self._logical[: self.ne0],
+                             [self._row(k)[1] for k in slot_at]])
+        pos = max(int(np.searchsorted(ls, page, side="right")) - 1, 0)
+        slot = self.order.get(pos)
+        if slot is None:
+            slot = int(self.old.sorted_order[pos])
+        old, start, end = self._row(slot)
+        if old & bit:
+            return
+        if not self.cfg.relocate_on_update:
+            self.bits[slot] = old | bit
+            return
+        new = self.ns
+        self.bits[new] = old | bit
+        self.starts[new], self.ends[new] = start, end
+        self.live[slot] = False
+        self.live[new] = True
+        self.order[pos] = new
+        self.ns += 1
+
+    def state(self) -> HippoState:
+        st, w = self.old, self.cfg.words
+        dev = st.bitmaps.device
+        self.bits[self.last] = self.lbits
+        self.starts[self.last] = self.lstart
+        self.ends[self.last] = self.lend
+
+        def put(t: torch.Tensor, writes: dict, vals=None) -> torch.Tensor:
+            t = t.clone()
+            if writes:
+                idx = torch.tensor(list(writes), dtype=torch.int64, device=dev)
+                if vals is None:
+                    vals = np.fromiter(writes.values(), np.int64, len(writes))
+                t[idx] = torch.from_numpy(vals).to(dev, t.dtype)
+            return t
+
+        def scalar(v: int) -> torch.Tensor:
+            return torch.tensor(v, dtype=torch.int32, device=dev)
+
+        return HippoState(
+            bounds=st.bounds,
+            bitmaps=put(st.bitmaps, self.bits,
+                        _int_rows(self.bits.values(), w)),
+            starts=put(st.starts, self.starts),
+            ends=put(st.ends, self.ends),
+            sorted_order=put(st.sorted_order, self.order),
+            slot_live=put(st.slot_live, self.live,
+                          np.fromiter(self.live.values(), bool,
+                                      len(self.live))),
+            num_entries=scalar(self.ne),
+            num_slots=scalar(self.ns),
+            summarized_until=scalar(self.su),
+        )
+
+
+def _head(state: HippoState) -> torch.Tensor:
+    """(6 + W,) int32 on the state's device: num_entries, num_slots,
+    summarized_until, the last logical entry's slot, start and end, and its
+    bitmap words."""
+    last = state.sorted_order[(state.num_entries.long() - 1).clamp(min=0)]
+    li = last.long()
+    return torch.cat([torch.stack([state.num_entries, state.num_slots,
+                                   state.summarized_until, last,
+                                   state.starts[li], state.ends[li]]),
+                      state.bitmaps[li]])
+
+
+def insert_tuples(cfg: HippoConfig, state: HippoState, values, page_ids, *,
+                  ids: torch.Tensor | None = None, su_floor: int = -1,
+                  on_full=None) -> tuple[HippoState, int]:
+    """Algorithm 3 for tuples ``values`` on pages ``page_ids``, in order:
+    the state after ``insert_tuple`` of each in turn, and its entry count.
+
+    The values are bucketized in one bucket-probe launch (or ``ids`` gives
+    their bucket ids, probed already); the ids come to the host with the
+    scalars and the last entry in one copy, and the branches replay there
+    (``_Alg3``): no device sync per tuple. ``on_full`` and ``su_floor`` are
+    the capacity check before each tuple (``_Alg3.run``). The given state is
+    never modified.
+    """
+    pages = np.asarray(page_ids, np.int64).reshape(-1)
+    if pages.size == 0:
+        return state, int(state.num_entries)
+    if ids is None:
+        if not isinstance(values, torch.Tensor):
+            values = torch.from_numpy(np.asarray(values, np.float32))
+        ids = bucketize(state.histogram, values.to(state.bitmaps.device))
+    host = torch.cat([_head(state), ids]).cpu().numpy()
+    rep = _Alg3(cfg, state, host)
+    rep.run(host[6 + cfg.words:].tolist(), pages.tolist(), su_floor, on_full)
+    return rep.state(), rep.ne
+
+
+def insert_tuple(cfg: HippoConfig, state: HippoState, value,
+                 page_id) -> HippoState:
+    """Algorithm 3: eager single-tuple index update (§5.1): bucketize the
+    value, locate the owning entry through the sorted list, then set the
+    bucket bit (in place, or by relocation), extend the last entry, or open
+    a new one, by the density rule."""
+    return insert_tuples(cfg, state, [float(value)], [int(page_id)])[0]
+
+
+def _or_bits(cfg: HippoConfig, rows: int, seg: torch.Tensor,
+             ids: torch.Tensor) -> torch.Tensor:
+    """(rows, W) int32 words with bucket ``ids[k]`` set in row ``seg[k]``
+    for every k with 0 <= seg[k] < rows.
+
+    The (row, word, bit) triples are deduplicated first (sorted as one int64
+    key), so the sum of the distinct bits of a word, added into zeros, is
+    their OR (bit 31 wraps in int32 as a sign, and distinct bits never
+    carry). Memory: the keys (8 B a triple) and one (rows, W) word array;
+    no (rows, H) table.
+    """
+    h, w = cfg.resolution, cfg.words
+    seg = seg.long().reshape(-1)
+    key = torch.where((seg >= 0) & (seg < rows),
+                      seg * h + ids.long().reshape(-1), -1).sort().values
+    keep = key >= 0
+    keep[1:] &= key[1:] != key[:-1]
+    b = key.remainder(h)
+    flat = torch.where(keep, key.div(h, rounding_mode="floor") * w
+                       + b // bm.WORD_BITS, 0)
+    bit = torch.where(keep, bm._wrap_int32(
+        torch.ones_like(b) << b.remainder(bm.WORD_BITS)), 0)
+    words = torch.zeros(rows * w, dtype=torch.int32, device=ids.device)
+    words.index_add_(0, flat, bit)
+    return words.view(rows, w)
+
+
+def or_existing(cfg: HippoConfig, state: HippoState, ids: torch.Tensor,
+                page_ids: torch.Tensor) -> HippoState:
+    """``insert_batch_existing`` for tuples of bucket ids ``ids`` (already
+    probed) on summarized pages ``page_ids``."""
+    slots, _ = locate_slots(state, page_ids)
+    return state._replace(bitmaps=state.bitmaps | _or_bits(
+        cfg, state.bitmaps.shape[0], slots, ids))
+
+
+def insert_batch_existing(cfg: HippoConfig, state: HippoState,
+                          values: torch.Tensor, page_ids: torch.Tensor,
+                          mask: torch.Tensor) -> HippoState:
+    """The batch update for tuples landing on already-summarized pages:
+    bucketize every value (one launch), locate every owning slot with one
+    binary search of the sorted list, and OR the new bits in. Never
+    relocates. ``mask`` selects the tuples to apply."""
+    mask = mask.to(torch.bool)
+    return or_existing(cfg, state, bucketize(state.histogram, values[mask]),
+                       page_ids[mask])
+
+
+# ---------------------------------------------------------------------------
+# Maintenance — lazy delete / vacuum (§5.2)
+# ---------------------------------------------------------------------------
+
+def resummarize_slots(cfg: HippoConfig, state: HippoState, keys: torch.Tensor,
+                      valid: torch.Tensor, affected: torch.Tensor
+                      ) -> HippoState:
+    """Re-summarize the page ranges of ``affected`` slots (vacuum, §5.2).
+
+    Pages are assigned to slots as the reference assigns them: each live
+    affected slot marks its start page with its slot id, a running maximum
+    carries the marks forward, and a page belongs to the carried slot while
+    it is at or before that slot's end. Only those pages' tuples are
+    bucketized (one launch; an invalid tuple sets bucket H-1, as in the
+    reference's page bits) and OR-ed into fresh bitmaps (``_or_bits``); every
+    affected slot takes its fresh bitmap (zero if it got no page), the rest
+    keep theirs. ``affected``: (S,) bool.
+    """
+    num_pages, card = keys.shape
+    s = state.bitmaps.shape[0]
+    dev = state.bitmaps.device
+    slot_ids = torch.arange(s, dtype=torch.int64, device=dev)
+    live = state.slot_live & (slot_ids < state.num_slots) & affected
+    if num_pages:
+        marks = torch.full((num_pages,), -1, dtype=torch.int64, device=dev)
+        marks.scatter_reduce_(0, state.starts.long().clamp(0, num_pages - 1),
+                              torch.where(live, slot_ids, -1), "amax")
+        filled = marks.cummax(0).values
+        ends_of = torch.where(filled >= 0,
+                              state.ends[filled.clamp(0, s - 1)].long(), -1)
+        in_range = (filled >= 0) & (
+            torch.arange(num_pages, device=dev) <= ends_of)
+        pages = in_range.nonzero()[:, 0]
+        seg = filled[pages, None].expand(pages.shape[0], card)
+        ids = grouping.tuple_bucket_ids(state.histogram, keys[pages],
+                                        valid[pages])
+        fresh = _or_bits(cfg, s, seg, ids)
+    else:
+        fresh = torch.zeros_like(state.bitmaps)
+    return state._replace(bitmaps=torch.where(affected[:, None], fresh,
+                                              state.bitmaps))
+
+
+def resummarize_shard(cfg: HippoConfig, state: HippoState, keys: torch.Tensor,
+                      valid: torch.Tensor, new_bounds: torch.Tensor
+                      ) -> HippoState:
+    """Remap a shard's partial histograms onto new complete-histogram bounds:
+    every live entry's bitmap rebuilt from its pages under ``new_bounds``,
+    and the state's ``bounds`` swapped in the same update. Page ranges, the
+    sorted list and counts are untouched."""
+    s = state.bitmaps.shape[0]
+    live = state.slot_live & (torch.arange(s, device=state.bitmaps.device)
+                              < state.num_slots)
+    return resummarize_slots(cfg, state._replace(bounds=new_bounds), keys,
+                             valid, live)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Sharded partition layer — Hippo over contiguous page slabs (port of
-``repro.core.partition``, read side).
+``repro.core.partition``).
 
 The page space is split into S contiguous slabs of ``pages_per_shard``
 pages, and every shard carries a full, independent Hippo structure over its
@@ -9,11 +9,14 @@ predicates convert per bounds epoch into (S, Q, W) query bitmaps; all shards
 share one epoch until drift re-summarization is ported.
 
 Ported here: ``ShardSpec``, ``ShardedHippoState``, ``summary_of``,
-``build_sharded`` and the read surface of ``ShardedHippoIndex``: the fused
-compact and dense batches, one shard's dense batch, and ``plan_batch``, the
-summary test of every query against every shard (partition pruning) that
-the engine's routed dispatch reads. Inserts, vacuum and the writer
-attachment come with later slices (ROADMAP.md, queue 1 items 9-10).
+``set_shard``, ``build_sharded`` and ``ShardedHippoIndex``: the fused
+compact and dense batches, one shard's dense batch, ``plan_batch`` (the
+summary test of every query against every shard, which the engine's routed
+dispatch reads), and maintenance routed to the owning shard: the eager
+``insert``, the atomic ``insert_batch``, ``vacuum`` and ``vacuum_shard``,
+each recomputing the touched shard's summary. The writer attachment
+(``staging``) stays None until the writer is ported (ROADMAP.md, queue 1
+item 10).
 """
 from __future__ import annotations
 
@@ -63,13 +66,27 @@ class ShardedHippoState(NamedTuple):
 
 
 def summary_of(st: hix.HippoState) -> torch.Tensor:
-    """(W,) packed union of one shard's live entry bitmaps (pruning filter)."""
+    """(W,) packed union of one shard's live entry bitmaps (pruning filter),
+    on the state's device."""
     slots = st.bitmaps.shape[0]
     live = st.slot_live & (torch.arange(slots, device=st.bitmaps.device)
                            < st.num_slots)
-    words = st.bitmaps[live].cpu().numpy().view(np.uint32)
-    union = np.bitwise_or.reduce(words, axis=0)
-    return torch.from_numpy(union.view(np.int32).copy()).to(st.bitmaps.device)
+    return bm.or_reduce(torch.where(live[:, None], st.bitmaps, 0))
+
+
+def _with_row(stacked: torch.Tensor, s: int, row: torch.Tensor
+              ) -> torch.Tensor:
+    out = stacked.clone()
+    out[s] = row
+    return out
+
+
+def set_shard(shards: hix.HippoState, s: int, st: hix.HippoState
+              ) -> hix.HippoState:
+    """The stacked state with shard s replaced by ``st`` (copies: the given
+    stack is unchanged)."""
+    return hix.HippoState(*(_with_row(stacked, s, new)
+                            for stacked, new in zip(shards, st)))
 
 
 def build_sharded(cfg: hix.HippoConfig, spec: ShardSpec, hist: hg.Histogram,
@@ -104,8 +121,11 @@ class ShardedHippoIndex:
     table: PagedTable
     device: torch.device
     counters: MaintenanceCounters = field(default_factory=MaintenanceCounters)
-    # Shard id a writer drain is swapping (None otherwise); queries refuse
-    # while set. No writer exists in this slice, so it stays None.
+    # The attached writer (None: maintenance is synchronous). No writer is
+    # ported yet, so it stays None.
+    staging: object | None = field(default=None, repr=False, compare=False)
+    # Shard id a writer drain is swapping (None otherwise); queries and
+    # maintenance refuse while set. Without a writer it stays None.
     swap_in_flight: int | None = field(default=None, repr=False, compare=False)
     summary: str = "equal_mass"
 
@@ -170,6 +190,17 @@ class ShardedHippoIndex:
                 f"shard {self.swap_in_flight} swap in flight: queries and "
                 f"maintenance are refused until the writer drain completes "
                 f"(state and table disagree about that shard mid-swap)")
+
+    def _check_no_staged(self) -> None:
+        """Refuse direct inserts while a writer holds staged rows: staged
+        page routing was predicted from the table tail, and a direct append
+        would shift it under the queues."""
+        if self.staging is not None and self.staging.queue_depth:
+            raise RuntimeError(
+                f"writer has {self.staging.queue_depth} staged rows pending: "
+                f"route writes through the writer (or flush() it first) — a "
+                f"direct insert would shift the table tail and break the "
+                f"staged rows' page routing")
 
     # -- query ---------------------------------------------------------------
 
@@ -269,6 +300,157 @@ class ShardedHippoIndex:
 
     def count(self, pred: Predicate) -> int:
         return int(self.search_batch([pred]).counts[0])
+
+    # -- maintenance ---------------------------------------------------------
+
+    def _require_capacity(self, s: int, page_id: int, opens_page: bool,
+                          num_slots: int | None = None) -> None:
+        """Refuse, before any mutation, inserts the shard layout cannot hold:
+        a page past the last slab, or slot exhaustion inside shard s
+        (``num_slots``: shard s's count, read from the state if not given)."""
+        if s >= self.spec.num_shards:
+            raise RuntimeError(
+                f"shard layout full: page {page_id} falls past shard "
+                f"{self.spec.num_shards - 1}'s slab "
+                f"(pages_per_shard={self.spec.pages_per_shard}); rebuild with "
+                f"more shards or larger slabs")
+        if opens_page or self.cfg.relocate_on_update:
+            if num_slots is None:
+                num_slots = int(self.state.shards.num_slots[s])
+            if num_slots + 1 > self.cfg.max_slots:
+                raise RuntimeError(
+                    f"shard {s} at slot capacity ({num_slots}/"
+                    f"{self.cfg.max_slots}); rebuild with a larger max_slots")
+
+    def _apply_shard(self, s: int, st: hix.HippoState) -> None:
+        self.state = ShardedHippoState(
+            shards=set_shard(self.state.shards, s, st),
+            summaries=_with_row(self.state.summaries, s, summary_of(st)))
+
+    def insert(self, value: float) -> None:
+        """Eager insert routed to the owning shard (Algorithm 3, shard
+        local)."""
+        self._check_swap_guard()
+        self._check_no_staged()
+        page_id, opens_page = self.table.next_page_id()
+        s = self.spec.owner(page_id)
+        self._require_capacity(s, page_id, opens_page)
+        self.table.insert(value)
+        st = hix.shard_state(self.state.shards, s)
+        before = int(st.num_entries)
+        st, after = hix.insert_tuples(self.cfg, st, [value],
+                                      [self.spec.to_local(page_id)])
+        self._apply_shard(s, st)
+        self.counters.inserts += 1
+        self.counters.entries_touched += 1
+        self.counters.entries_created += after - before
+
+    def insert_batch(self, values: np.ndarray) -> None:
+        """Atomic vectorized insert: tuples landing on already-summarized
+        pages take one fused OR per touched shard; page-opening tuples replay
+        the eager path on the host (``core.index.insert_tuples``), one
+        bucket-probe launch per touched shard for both. On refusal the table
+        and every shard roll back (no update writes into the snapshot)."""
+        self._check_swap_guard()
+        self._check_no_staged()
+        values = np.asarray(values, np.float32).ravel()
+        if values.size == 0:
+            return
+        snap_state = self.state
+        snap_pages, snap_fill = self.table.num_pages, self.table.fill
+        try:
+            self._insert_batch_apply(values)
+        except RuntimeError:
+            self.state = snap_state
+            self.table.truncate_to(snap_pages, snap_fill)
+            raise
+        self.counters.inserts += len(values)
+
+    def _insert_batch_apply(self, values: np.ndarray) -> None:
+        pps = self.spec.pages_per_shard
+        owners = self.table.append_pages(values.size) // pps
+        over = np.flatnonzero(owners >= self.spec.num_shards)
+        if over.size:
+            # the reference appends up to the first page past the layout,
+            # then refuses (and the caller rolls the table back)
+            pid = int(self.table.append(values[: over[0] + 1])[-1])
+            raise RuntimeError(
+                f"shard layout full: page {pid} falls past shard "
+                f"{self.spec.num_shards - 1}'s slab; rebuild with more "
+                f"shards or larger slabs")
+        pages = self.table.append(values)
+        old = pages <= self.summarized_until
+        eager = []
+        for s in np.unique(owners):
+            s = int(s)
+            mine = owners == s
+            local = pages[mine] - self.spec.page_lo(s)
+            ids = hg.bucketize(self.shard_histogram(s), torch.from_numpy(
+                values[mine]).to(self.device))
+            o = old[mine]
+            if o.any():
+                st = hix.or_existing(
+                    self.cfg, hix.shard_state(self.state.shards, s),
+                    ids[torch.from_numpy(o).to(self.device)],
+                    torch.from_numpy(local[o]).to(self.device))
+                self._apply_shard(s, st)
+            if not o.all():
+                eager.append((s, local[~o],
+                              ids[torch.from_numpy(~o).to(self.device)]))
+        for s, local, ids in eager:
+            # a tuple opens a page when it lies past the global
+            # summarized_until: in shard s's page ids, past the larger of
+            # the global value and the shard's own
+            st, _ = hix.insert_tuples(
+                self.cfg, hix.shard_state(self.state.shards, s), None, local,
+                ids=ids, su_floor=self.summarized_until - self.spec.page_lo(s),
+                on_full=lambda n, s=s: self._require_capacity(s, 0, True, n))
+            self._apply_shard(s, st)
+
+    def dirty_shards(self) -> np.ndarray:
+        """Shard ids owning at least one dirty page (pending vacuum work)."""
+        dirty_pages = np.flatnonzero(self.table.dirty[: self.table.num_pages])
+        return np.unique(dirty_pages // self.spec.pages_per_shard)
+
+    def vacuum(self) -> int:
+        """§5.2 lazy maintenance, shard-grouped: dirty pages re-summarize
+        entries inside their owning shards only. Returns total entries
+        re-summarized."""
+        self._check_swap_guard()
+        return sum(self._vacuum_shard_locked(int(s))
+                   for s in self.dirty_shards())
+
+    def vacuum_shard(self, s: int) -> int:
+        """Vacuum one shard: re-summarize its entries covering dirty pages
+        and clear only that shard's dirty notes; other shards' state,
+        summaries and notes are untouched. Returns entries re-summarized (0
+        if the shard has no dirty pages)."""
+        self._check_swap_guard()
+        return self._vacuum_shard_locked(s)
+
+    def _vacuum_shard_locked(self, s: int) -> int:
+        """``vacuum_shard`` without the swap guard (the writer's form). The
+        dirty pages are located with one search of the sorted list."""
+        dirty_pages = np.flatnonzero(self.table.dirty[: self.table.num_pages])
+        pps = self.spec.pages_per_shard
+        dirty_pages = dirty_pages[dirty_pages // pps == s]
+        if dirty_pages.size == 0:
+            return 0
+        keys, valid = self._slabs()
+        st = hix.shard_state(self.state.shards, s)
+        slots, _ = hix.locate_slots(st, torch.from_numpy(
+            dirty_pages - self.spec.page_lo(s)))
+        affected = torch.zeros((self.cfg.max_slots,), dtype=torch.bool,
+                               device=self.device)
+        affected[slots.long()] = True
+        st = hix.resummarize_slots(self.cfg, st, keys[s], valid[s], affected)
+        self._apply_shard(s, st)
+        self.table.clear_dirty(dirty_pages)
+        n = int(affected.sum())
+        # one counted vacuum per shard that did work, on every entry point
+        self.counters.vacuums += 1
+        self.counters.entries_resummarized += n
+        return n
 
     # -- introspection -------------------------------------------------------
 

@@ -95,7 +95,8 @@ def interval_bitmaps(bounds: torch.Tensor, los: torch.Tensor,
 
     bounds: (H+1,) f32; los/his: (Q,) finite f32; nonempty: (Q,) bool
     (False rows produce all-zero bitmaps). Both endpoints are bucketed in
-    one kernel launch.
+    one kernel launch; a NaN endpoint lands in bucket H-1, as the
+    reference's ``searchsorted`` puts it.
     """
     h = bounds.shape[-1] - 1
     q = los.shape[0]

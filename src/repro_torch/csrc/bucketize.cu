@@ -4,9 +4,14 @@
 // (src/repro/kernels/bucketize/kernel.py:40, pallas_call at :48):
 //   ids[i] = clip(#{bounds <= values[i]} - 1, 0, resolution - 1)
 // which equals searchsorted(bounds, v, side="right") - 1, clipped, for
-// nondecreasing bounds (NaN bounds are outside that contract). Callers: the
-// index build (every tuple of a shard, through a view that starts at any
-// 4 B boundary) and predicate conversion (the 2Q endpoints of a batch).
+// nondecreasing bounds (NaN bounds are outside that contract). That formula
+// gives a NaN value bucket 0; the reference's core (jnp.searchsorted) sorts
+// NaN last, into bucket resolution - 1. With `nan_last` set, a NaN value
+// takes resolution - 1 (one select in the same pass); with it clear, the
+// kernel keeps the TPU kernel's formula. Callers: the index build and the
+// maintenance paths (every tuple of a shard, through a view that starts at
+// any 4 B boundary; inserted values) and predicate conversion (the 2Q
+// endpoints of a batch), all with `nan_last` set.
 //
 // What bounds it on the H100: bytes. Each value is read once (4 B) and its
 // id written once (4 B); the H+1 bounds are a few KB. At the build's shape
@@ -143,11 +148,12 @@ __device__ inline void build_table(Probe& pr, int* tab, float* span) {
   __syncthreads();
 }
 
+// nan_id: the id of a NaN value (0, the rank formula's, or resolution - 1).
 template <bool kTable>
 __device__ __forceinline__ int bucket_id(const Probe& pr, float v,
-                                         int resolution) {
+                                         int resolution, int nan_id) {
   const int id = (kTable ? rank_table(pr, v) : rank_all(pr, v)) - 1;
-  return min(max(id, 0), resolution - 1);
+  return isnan(v) ? nan_id : min(max(id, 0), resolution - 1);
 }
 
 // values[head .. head + nvec * V) in vectors of V, the rest one by one.
@@ -156,7 +162,7 @@ __global__ void __launch_bounds__(kThreads)
     bucketize_kernel(const float* __restrict__ values, int64_t n,
                      int64_t head, int64_t nvec,
                      const float* __restrict__ bounds, int nb, int resolution,
-                     int* __restrict__ out) {
+                     int nan_id, int* __restrict__ out) {
   using F = typename Vec<V>::F;
   using I = typename Vec<V>::I;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -181,7 +187,7 @@ __global__ void __launch_bounds__(kThreads)
     in.f = cur;
 #pragma unroll
     for (int u = 0; u < V; ++u) {
-      res.a[u] = bucket_id<kTable>(pr, in.a[u], resolution);
+      res.a[u] = bucket_id<kTable>(pr, in.a[u], resolution, nan_id);
     }
     ov[i] = res.i;
     cur = next;
@@ -191,14 +197,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x; g < rest;
        g += stride) {
     const int64_t k = g < head ? g : tail + (g - head);
-    out[k] = bucket_id<kTable>(pr, values[k], resolution);
+    out[k] = bucket_id<kTable>(pr, values[k], resolution, nan_id);
   }
 }
 
 template <int V, bool kTable>
 cudaError_t launch(const float* values, int64_t n, int64_t head, int64_t nvec,
-                   const float* bounds, int nb, int resolution, int* out,
-                   int64_t blocks, cudaStream_t stream) {
+                   const float* bounds, int nb, int resolution, int nan_id,
+                   int* out, int64_t blocks, cudaStream_t stream) {
   auto kernel = bucketize_kernel<V, kTable>;
   const size_t smem =
       (size_t)nb * 4 + (kTable ? (size_t)(kBuckets + 2) * 4 : 0);
@@ -210,7 +216,7 @@ cudaError_t launch(const float* values, int64_t n, int64_t head, int64_t nvec,
     return err;
   }
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      values, n, head, nvec, bounds, nb, resolution, out);
+      values, n, head, nvec, bounds, nb, resolution, nan_id, out);
   return cudaGetLastError();
 }
 
@@ -233,7 +239,7 @@ inline cudaError_t sm_count(int* sms) {
 
 template <int V>
 cudaError_t launch_width(const float* values, int64_t n, const float* bounds,
-                         int nb, int resolution, int* out,
+                         int nb, int resolution, int nan_id, int* out,
                          cudaStream_t stream) {
   // head: values before the first address aligned to V floats
   const int64_t mis = (int64_t)((reinterpret_cast<uintptr_t>(values) / 4) %
@@ -250,31 +256,36 @@ cudaError_t launch_width(const float* values, int64_t n, const float* bounds,
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
   if (nvec * V >= (int64_t)kTableValues * kThreads * resident) {
-    return launch<V, true>(values, n, head, nvec, bounds, nb, resolution, out,
-                           blocks, stream);
+    return launch<V, true>(values, n, head, nvec, bounds, nb, resolution,
+                           nan_id, out, blocks, stream);
   }
-  return launch<V, false>(values, n, head, nvec, bounds, nb, resolution, out,
-                          blocks, stream);
+  return launch<V, false>(values, n, head, nvec, bounds, nb, resolution,
+                          nan_id, out, blocks, stream);
 }
 
 }  // namespace
 
 extern "C" int hippo_bucketize(const float* values, int64_t n,
                                const float* bounds, int nb, int resolution,
-                               int* out, cudaStream_t stream) {
+                               int nan_last, int* out, cudaStream_t stream) {
   if (n <= 0 || nb <= 0) return (int)cudaGetLastError();
+  const int nan_id = nan_last ? resolution - 1 : 0;
   // The widest vector at which values and ids share their offset.
   const uintptr_t d = reinterpret_cast<uintptr_t>(values) ^
                       reinterpret_cast<uintptr_t>(out);
   cudaError_t err;
   if (n < kSmall) {   // one value a thread: the shortest chain per thread
-    err = launch_width<1>(values, n, bounds, nb, resolution, out, stream);
+    err = launch_width<1>(values, n, bounds, nb, resolution, nan_id, out,
+                          stream);
   } else if ((d & 15) == 0) {
-    err = launch_width<4>(values, n, bounds, nb, resolution, out, stream);
+    err = launch_width<4>(values, n, bounds, nb, resolution, nan_id, out,
+                          stream);
   } else if ((d & 7) == 0) {
-    err = launch_width<2>(values, n, bounds, nb, resolution, out, stream);
+    err = launch_width<2>(values, n, bounds, nb, resolution, nan_id, out,
+                          stream);
   } else {
-    err = launch_width<1>(values, n, bounds, nb, resolution, out, stream);
+    err = launch_width<1>(values, n, bounds, nb, resolution, nan_id, out,
+                          stream);
   }
   return (int)err;
 }

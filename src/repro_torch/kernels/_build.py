@@ -39,8 +39,8 @@ _I32 = ctypes.c_int
 
 # C entry point -> argtypes; every entry point returns a cudaError_t as int.
 SIGNATURES = {
-    # values, n, bounds, num_bounds, resolution, out, stream
-    "hippo_bucketize": [_PTR, _I64, _PTR, _I32, _I32, _PTR, _PTR],
+    # values, n, bounds, num_bounds, resolution, nan_last, out, stream
+    "hippo_bucketize": [_PTR, _I64, _PTR, _I32, _I32, _I32, _PTR, _PTR],
     # queries, entries, live, S, Q, E, W, out, stream
     "hippo_batch_filter_sharded": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32,
                                    _PTR, _PTR],
@@ -140,10 +140,12 @@ def build(csrc: Path = CSRC) -> Path:
     return lib
 
 
-def load(path: Path) -> ctypes.CDLL:
-    """Load a built kernel library and declare its entry points' types."""
+def load(path: Path, signatures: dict | None = None) -> ctypes.CDLL:
+    """Load a built kernel library and declare its entry points' types
+    (``signatures``, by default ``SIGNATURES``: an earlier design's library
+    may declare an entry point with other arguments)."""
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
+    for name, argtypes in (signatures or SIGNATURES).items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -11,8 +11,9 @@ KERNEL = _build.Kernel("hippo_bucketize", "src/repro_torch/csrc/bucketize.cu",
 
 
 def launch(values: torch.Tensor, bounds: torch.Tensor, resolution: int,
-           out: torch.Tensor) -> None:
+           nan_last: bool, out: torch.Tensor) -> None:
     """values (N,) f32, bounds (H+1,) f32, out (N,) int32, all contiguous on
     one CUDA device (the wrapper in ``ops`` checks)."""
     KERNEL.launch(values.data_ptr(), values.numel(), bounds.data_ptr(),
-                  bounds.numel(), resolution, out.data_ptr(), on=values)
+                  bounds.numel(), resolution, int(nan_last), out.data_ptr(),
+                  on=values)

@@ -1,8 +1,10 @@
 """Plain PyTorch version of the bucket probe: compare and count.
 
 ``ids = clip(#{bounds <= v} - 1, 0, H - 1)``, the TPU kernel's own formula,
-in chunks of values so the (chunk, H+1) compare stays small. It is the CPU
-path of ``ops.bucketize_values`` and the CUDA kernel's oracle.
+in chunks of values so the (chunk, H+1) compare stays small; with
+``nan_last`` (the default) a NaN value gets H - 1 instead of the formula's
+0. It is the
+CPU path of ``ops.bucketize_values`` and the CUDA kernel's oracle.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ _CHUNK_ELEMS = 1 << 24
 
 
 def bucketize_ref(values: torch.Tensor, bounds: torch.Tensor,
-                  resolution: int) -> torch.Tensor:
+                  resolution: int, nan_last: bool = True) -> torch.Tensor:
     """values (N,) f32; bounds (H+1,) f32 nondecreasing -> (N,) int32."""
     n = values.numel()
     out = torch.empty((n,), dtype=torch.int32, device=values.device)
@@ -21,4 +23,6 @@ def bucketize_ref(values: torch.Tensor, bounds: torch.Tensor,
         v = values[i:i + step]
         cnt = (v[:, None] >= bounds[None, :]).sum(dim=1)
         out[i:i + step] = (cnt - 1).clamp(0, resolution - 1).to(torch.int32)
+    if nan_last:
+        out[values.isnan()] = resolution - 1
     return out

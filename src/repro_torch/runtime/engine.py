@@ -31,10 +31,17 @@ the reference's for the same stream:
              skipped (``EngineStats.shards_pruned``), and counts sum over the
              dispatched shards.
 
-Not ported yet, and refused with ``NotImplementedError``: writes, deletes,
-drains and drift re-summarization through a writer (ROADMAP.md queue 1
-items 9-10), and durable storage (item 13). Reads never touch a writer, so
-the read stream's tickets and stats are unaffected.
+Writes under ``drain_policy="sync"`` (the default on an unsharded index):
+``write`` runs Algorithm 3 on the spot (``index.insert``), ``delete`` marks
+the tuples deleted and vacuums if any was, ``flush`` has nothing to drain;
+``EngineStats.writes``/``deletes`` count them as the reference does.
+
+Not ported yet, and refused with ``NotImplementedError``: the writer-backed
+engine that every other policy selects (a ``ShardedHippoIndex`` with the
+default policy resolves to ``between_batches``, as in the reference): its
+writes, deletes, drains and drift re-summarization (ROADMAP.md queue 1 item
+10), and durable storage (item 13). Reads never touch a writer, so the read
+stream's tickets and stats are unaffected.
 """
 from __future__ import annotations
 
@@ -218,17 +225,20 @@ class QueryEngine:
             raise ValueError(f"compact_bucket must be >= 1, got {compact_bucket}")
         self._compact_bucket = _pow2_at_least(compact_bucket
                                               or _COMPACT_BUCKET_MIN)
-        # The maintenance knobs are validated as the reference validates them;
-        # nothing reads them until the writer is ported.
-        if drain_policy is not None and drain_policy not in _DRAIN_POLICIES:
+        # The maintenance knobs are resolved and validated as the reference
+        # does; writes run only under "sync" until the writer is ported.
+        supports_writer = hasattr(index, "plan_batch")
+        if drain_policy is None:
+            drain_policy = "between_batches" if supports_writer else "sync"
+        if drain_policy not in _DRAIN_POLICIES:
             raise ValueError(f"drain_policy must be one of {_DRAIN_POLICIES}, "
                              f"got {drain_policy!r}")
-        if drain_policy not in (None, "sync") \
-                and not hasattr(index, "plan_batch"):
+        if drain_policy != "sync" and not supports_writer:
             raise ValueError(
                 "async drain policies need a ShardedHippoIndex-style index "
                 "(per-shard queues route by ShardSpec); use "
                 "drain_policy='sync' for an unsharded index")
+        self.drain_policy = drain_policy
         if writer is not None:
             raise _not_ported("the maintenance writer", "item 10")
         if drift_threshold is not None and not 0.0 < drift_threshold <= 1.0:
@@ -262,19 +272,41 @@ class QueryEngine:
                 break
             self.slots[i] = self.queue.popleft()
 
-    # -- writes (not ported) -------------------------------------------------
+    # -- writes --------------------------------------------------------------
+
+    def _require_sync(self, what: str) -> None:
+        if self.drain_policy != "sync":
+            raise _not_ported(
+                f"QueryEngine.{what} under drain_policy="
+                f"{self.drain_policy!r} (the maintenance writer)", "item 10")
 
     def write(self, value: float) -> None:
-        raise _not_ported("QueryEngine.write", "items 9-10")
+        """Insert one tuple: Algorithm 3 on the spot (sync policy)."""
+        self._require_sync("write")
+        self.stats.writes += 1
+        self.index.insert(float(value))
 
     def delete(self, lo: float, hi: float) -> int:
-        raise _not_ported("QueryEngine.delete", "items 9-10")
+        """Delete tuples with key in [lo, hi] and vacuum if any was deleted
+        (sync policy; queries stay exact either way, §5.2). Returns tuples
+        deleted."""
+        self._require_sync("delete")
+        n = self.index.table.delete_where(lo, hi)
+        if n:   # a no-op delete dirtied nothing: skip the vacuum
+            self.index.vacuum()
+        self.stats.deletes += n
+        return n
 
     def flush(self) -> int:
-        raise _not_ported("QueryEngine.flush", "item 10")
+        """Drain pending maintenance: nothing is pending under sync."""
+        self._require_sync("flush")
+        return 0
 
     def resummarize(self, bounds=None) -> int:
-        raise _not_ported("QueryEngine.resummarize", "item 10")
+        self._require_sync("resummarize")
+        raise RuntimeError(
+            "resummarize needs a writer-backed engine (an async "
+            "drain_policy on a ShardedHippoIndex)")
 
     # -- execution ------------------------------------------------------------
 

@@ -1,5 +1,5 @@
 """PagedTable — the heap-file analogue backing a Hippo index (port of
-``repro.storage.table``, read side).
+``repro.storage.table``).
 
 A page is a fixed-width row block of ``page_card`` tuples; the key column is
 float32 (num_pages, page_card) on the host (numpy, the buffer manager's
@@ -7,9 +7,15 @@ copy), and queries read torch device views of it. The sharded views reshape
 the page space into S contiguous slabs of ``pages_per_shard`` pages; slab
 pages past ``num_pages`` are zero-key, invalid padding.
 
+Mutations are host-side numpy, as in the reference: appends (``insert``,
+``insert_batch``, the vectorized ``append``), ``delete_where``, which marks
+tuples invalid and sets the per-page ``dirty`` note that VACUUM consumes
+(§5.2), ``clear_dirty`` and the rollback ``truncate_to``. Every mutation
+drops the unsharded view and marks the slab view stale, so the next query
+uploads the table again. ``refresh_shard_slabs`` (the writer's patch of
+single slabs) comes with the writer (ROADMAP.md, queue 1 item 10).
+
 Device views follow the port's device rule: ``device=None`` is the card.
-Mutations (``delete_where``, appends, ``refresh_shard_slabs``) come with the
-maintenance slice (ROADMAP.md, queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -27,17 +33,24 @@ class PagedTable:
     capacity_pages: int
     keys: np.ndarray = field(default=None)      # (capacity_pages, page_card) f32
     valid: np.ndarray = field(default=None)     # (capacity_pages, page_card) bool
+    dirty: np.ndarray = field(default=None)     # (capacity_pages,) bool — VACUUM notes
     num_pages: int = 0                          # pages in use (last may be partial)
     fill: int = 0                               # tuples in the last page
+    num_dirty: int = 0                          # pages with a pending VACUUM note
     payload: dict = field(default_factory=dict)  # name -> (capacity, page_card) array
     _dev: tuple | None = field(default=None, repr=False, compare=False)
     _dev_shard: tuple | None = field(default=None, repr=False, compare=False)
+    # Mutations mark the slab view stale instead of dropping it (as the
+    # reference does, for the writer's single-slab patch).
+    _dev_shard_stale: bool = field(default=False, repr=False, compare=False)
 
     def __post_init__(self):
         if self.keys is None:
             self.keys = np.zeros((self.capacity_pages, self.page_card), np.float32)
         if self.valid is None:
             self.valid = np.zeros((self.capacity_pages, self.page_card), bool)
+        if self.dirty is None:
+            self.dirty = np.zeros((self.capacity_pages,), bool)
 
     # -- construction -------------------------------------------------------
 
@@ -64,6 +77,10 @@ class PagedTable:
     @property
     def cardinality(self) -> int:
         return int(self.valid[: self.num_pages].sum())
+
+    def heap_nbytes(self) -> int:
+        """Bytes of live table storage (key column only, paper's table size)."""
+        return self.num_pages * self.page_card * 4
 
     # -- row-id decoding (compact-path result payloads) ----------------------
 
@@ -113,7 +130,8 @@ class PagedTable:
         invalid padding."""
         dev = resolve_device(device)
         key = (num_shards, pages_per_shard, self.num_pages, dev)
-        if self._dev_shard is None or self._dev_shard[0] != key:
+        if (self._dev_shard is None or self._dev_shard_stale
+                or self._dev_shard[0] != key):
             total = num_shards * pages_per_shard
             if total < self.num_pages:
                 raise ValueError(
@@ -129,6 +147,7 @@ class PagedTable:
             valid.view(total, self.page_card)[:n] = \
                 torch.from_numpy(self.valid[:n]).to(dev)
             self._dev_shard = (key, keys, valid)
+            self._dev_shard_stale = False
         return self._dev_shard
 
     def device_keys_sharded(self, num_shards: int, pages_per_shard: int,
@@ -138,3 +157,110 @@ class PagedTable:
     def device_valid_sharded(self, num_shards: int, pages_per_shard: int,
                              device=None) -> torch.Tensor:
         return self._shard_views(num_shards, pages_per_shard, device)[2]
+
+    # -- mutations (host side = buffer manager) ------------------------------
+
+    def _mutated(self) -> None:
+        self._dev = None
+        self._dev_shard_stale = True
+
+    def next_page_id(self) -> tuple[int, bool]:
+        """(page the next append lands on, whether it opens a new page): the
+        append policy that index layers predict through before mutating."""
+        new_page = self.fill == self.page_card or self.num_pages == 0
+        return (self.num_pages if new_page else self.num_pages - 1), new_page
+
+    def insert(self, value: float) -> tuple[int, bool]:
+        """Append one tuple to the last partial page, else open a new page;
+        returns (page_id, is_new_page)."""
+        _, new_page = self.next_page_id()
+        if new_page:
+            if self.num_pages == self.capacity_pages:
+                self._grow()
+            self.num_pages += 1
+            self.fill = 0
+        p = self.num_pages - 1
+        self.keys[p, self.fill] = np.float32(value)
+        self.valid[p, self.fill] = True
+        self.fill += 1
+        self._mutated()
+        return p, new_page
+
+    def append_pages(self, n: int) -> np.ndarray:
+        """(n,) int64: the pages the next ``n`` appends land on, without
+        appending them."""
+        base = (self.num_pages - 1) * self.page_card + self.fill \
+            if self.num_pages else 0
+        return (base + np.arange(n, dtype=np.int64)) // self.page_card
+
+    def append(self, values: np.ndarray) -> np.ndarray:
+        """Append ``values`` in order, as ``insert`` would one by one (the
+        same pages and fills, and the same growth steps), in one vectorized
+        write; returns the (n,) page id of each."""
+        values = np.asarray(values, np.float32).ravel()
+        if values.size == 0:
+            return np.zeros((0,), np.int64)
+        base = (self.num_pages - 1) * self.page_card + self.fill \
+            if self.num_pages else 0
+        flat = base + np.arange(values.size, dtype=np.int64)
+        pages, slots = flat // self.page_card, flat % self.page_card
+        while self.capacity_pages <= pages[-1]:
+            self._grow()
+        self.keys[pages, slots] = values
+        self.valid[pages, slots] = True
+        self.num_pages = int(pages[-1]) + 1
+        self.fill = int(slots[-1]) + 1
+        self._mutated()
+        return pages
+
+    def insert_batch(self, values: np.ndarray) -> tuple[int, int]:
+        """Vectorized append; returns (first_page_touched, last_page)."""
+        first = max(self.num_pages - 1, 0)
+        self.append(values)
+        return first, self.num_pages - 1
+
+    def delete_where(self, lo: float, hi: float) -> int:
+        """Mark tuples with key in [lo, hi] deleted; set page dirty notes."""
+        live = self.valid[: self.num_pages]
+        keys = self.keys[: self.num_pages]
+        hit = live & (keys >= lo) & (keys <= hi)
+        if not hit.any():
+            return 0                      # nothing changed: keep device views
+        npages = hit.any(axis=1)
+        self.num_dirty += int((npages & ~self.dirty[: self.num_pages]).sum())
+        self.valid[: self.num_pages] &= ~hit
+        self.dirty[: self.num_pages] |= npages
+        self._mutated()
+        return int(hit.sum())
+
+    def clear_dirty(self, page_ids: np.ndarray) -> None:
+        # dedup: repeated ids must not decrement num_dirty twice
+        ids = np.unique(np.asarray(page_ids, np.int64))
+        self.num_dirty -= int(self.dirty[ids].sum())
+        self.dirty[ids] = False
+
+    def truncate_to(self, num_pages: int, fill: int) -> None:
+        """Drop tuples appended past a (num_pages, fill) snapshot: the
+        rollback of an atomic batch insert (appends only write forward of
+        the snapshot position)."""
+        self.valid[num_pages:] = False
+        self.keys[num_pages:] = 0.0
+        self.num_dirty -= int(self.dirty[num_pages:].sum())
+        self.dirty[num_pages:] = False
+        if num_pages:
+            self.valid[num_pages - 1, fill:] = False
+            self.keys[num_pages - 1, fill:] = 0.0
+        self.num_pages = num_pages
+        self.fill = fill
+        self._mutated()
+
+    def _grow(self) -> None:
+        add = max(self.capacity_pages // 2, 64)
+        c = self.page_card
+        self.keys = np.concatenate([self.keys, np.zeros((add, c), np.float32)])
+        self.valid = np.concatenate([self.valid, np.zeros((add, c), bool)])
+        self.dirty = np.concatenate([self.dirty, np.zeros((add,), bool)])
+        for name, buf in self.payload.items():
+            self.payload[name] = np.concatenate(
+                [buf, np.zeros((add, c), buf.dtype)])
+        self.capacity_pages += add

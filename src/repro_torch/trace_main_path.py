@@ -11,9 +11,13 @@ predicates per engine: compact without row ids and with ``top_k=32``, dense
 on the HippoIndex, and routed and fused dense on the sharded index; then one
 single-query ``HippoIndex.search`` (a 100-day predicate, after a warm-up
 search) and the build of one shard (``core.index.build`` on shard 1's view:
-the bucket probe, the page bits and the host grouping scan). Prints, per
-window, the wall time, the device-busy share of that window (summed kernel
-time over wall time) and the operators by device time.
+the bucket probe, the page bits and the host grouping scan); then the
+maintenance of ``chip_smoke.py``'s phase 2c on the sharded index: one eager
+``insert`` (after a warm-up insert), one ``insert_batch`` of ``--rows``/1000
+rows, and the ``vacuum`` after deleting one day. Prints, per window, the
+wall time, the device-busy share of that window (summed kernel time over
+wall time), the number of device-to-host copies (each one a host sync) and
+the operators by device time.
 """
 from __future__ import annotations
 
@@ -90,6 +94,17 @@ def main() -> None:
     _profiled("build of shard 1", lambda: hix.build(sidx.cfg, hist,
                                                      keys[1, :n1],
                                                      valid[1, :n1]))
+    del keys, valid
+    sidx.insert(5.0)                                      # warm-up
+    torch.cuda.synchronize()
+    _profiled("eager insert", lambda: sidx.insert(6.0))
+    batch = rng.integers(0, SHIPDATE_DAYS, max(args.rows // 1000, 1))
+    _profiled(f"insert_batch of {batch.size:,} rows",
+              lambda: sidx.insert_batch(batch.astype(np.float32)))
+    day = float(rng.integers(0, SHIPDATE_DAYS))
+    table.delete_where(day, day)
+    _profiled(f"vacuum after deleting day {day:g} ({table.num_dirty:,} "
+              f"dirty pages)", sidx.vacuum)
 
 
 def _profiled(name: str, fn) -> None:
@@ -103,8 +118,10 @@ def _profiled(name: str, fn) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = _kernels(prof)
     busy_us = sum(e.self_device_time_total for e in rows)
+    d2h = sum(e.count for e in rows if "DtoH" in e.key)
     print(f"{name}: wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%} of the window)")
+          f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%} of the window), "
+          f"{d2h} device-to-host copies")
     for e in rows[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} "
               f"calls  {e.key[:80]}")

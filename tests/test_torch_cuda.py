@@ -391,10 +391,12 @@ def _bounds(kind, rng, h):
     return b
 
 
-# N around the 4- and 2-value vectors and the launch that takes the rank
-# table (the large odd N), values 1-3 elements past an aligned base (heads,
-# tails, and the 8-mod-16 base of an odd shard's view), NaN, +-0, +-inf and
-# values equal to bounds.
+# N around the 4- and 2-value vectors, N of the vector launch without the
+# rank table (4096 values up to 16 a resident thread: an insert batch, one
+# vacuum's re-probed pages) and the launch that takes the rank table (the
+# large odd N), values 1-3 elements past an aligned base (heads, tails, and
+# the 8-mod-16 base of an odd shard's view), NaN, +-0, +-inf and values
+# equal to bounds.
 @needs_cuda
 @pytest.mark.parametrize("kind", ["increasing", "tied", "equal",
                                   "infinite ends", "signed zeros"])
@@ -405,7 +407,8 @@ def test_bucketize_kernel_at_edges(h, kind):
     bounds = torch.from_numpy(b)
     fin = b[np.isfinite(b)]
     pool = np.concatenate([EDGE_VALUES, b]).astype(np.float32)
-    for n in (1, 3, 4, 5, 127, 128, 129, 4_500_001):
+    for n in (1, 3, 4, 5, 127, 128, 129, 4096, 59_986, 290_001,
+              4_500_001):
         v = rng.choice(pool, n)
         if n > 1000 and fin.size:
             v[::2] = rng.uniform(fin[0] - 1, fin[-1] + 1, v[::2].size)
@@ -421,7 +424,8 @@ def test_bucketize_kernel_at_edges(h, kind):
 @needs_cuda
 def test_bucketize_kernel_equals_plain_on_drawn_edges():
     @settings(max_examples=40, deadline=None, database=None)
-    @given(seed=st.integers(0, 2**32 - 1), n=st.integers(1, 3000),
+    @given(seed=st.integers(0, 2**32 - 1),
+           n=st.integers(1, 3000) | st.integers(4096, 70_000),
            off=st.integers(0, 3), h=st.sampled_from([1, 2, 7, 64, 400]),
            kind=st.sampled_from(["increasing", "tied", "equal",
                                  "infinite ends", "signed zeros"]))
@@ -437,6 +441,88 @@ def test_bucketize_kernel_equals_plain_on_drawn_edges():
         assert torch.equal(got.cpu(), want)
 
     check()
+
+
+# NaN values (both signs, other payloads) among +-0, +-inf and values equal
+# to bounds, with the nan_last flag set (the core's NaN -> H-1) and clear
+# (the TPU kernel's formula, NaN -> 0), on the vector widths, the vector
+# launch without the rank table (an insert batch's N) and the table
+@needs_cuda
+@pytest.mark.parametrize("nan_last", [False, True])
+@pytest.mark.parametrize("kind", ["increasing", "tied", "equal",
+                                  "infinite ends", "signed zeros"])
+def test_bucketize_kernel_nan_last_equals_plain(kind, nan_last):
+    nans = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFFFFFFF],
+                    np.uint32).view(np.float32)
+    for h in (1, 16, 400):
+        rng = np.random.default_rng(h)
+        b = _bounds(kind, rng, h)
+        pool = np.concatenate([nans, EDGE_VALUES, b]).astype(np.float32)
+        bounds = torch.from_numpy(b)
+        for n in (1, 5, 129, 4096, 59_986, 4_500_001):
+            vals = torch.from_numpy(rng.choice(pool, n).astype(np.float32))
+            want = bk_ops.bucketize_ref(vals.cuda(), bounds.cuda(), h,
+                                        nan_last).cpu()
+            assert (want[vals.isnan()] == (h - 1 if nan_last else 0)).all()
+            for off in (0, 1, 2):
+                got = bk_ops.bucketize_values(_at_offset(vals, off),
+                                              bounds.cuda(), h, nan_last)
+                torch.cuda.synchronize()
+                assert torch.equal(got.cpu(), want), (h, n, off)
+
+
+def _maintenance_stream(idx, rng):
+    """Eager inserts, a batch across the partial page and new pages, a
+    delete and its vacuum; returns what a caller can observe."""
+    for v in rng.integers(0, 2555, 40):
+        idx.insert(float(v))
+    idx.insert_batch(rng.integers(0, 2555, 3000).astype(np.float32))
+    deleted = idx.table.delete_where(100.0, 160.0)
+    resummarized = idx.vacuum()
+    st = getattr(idx.state, "shards", idx.state)
+    fields = {f: getattr(st, f).cpu().numpy().tolist() for f in st._fields}
+    if hasattr(idx.state, "summaries"):
+        fields["summaries"] = idx.state.summaries.cpu().numpy().tolist()
+    return fields, (deleted, resummarized, dict(vars(idx.counters)),
+                    idx.table.num_pages, idx.table.fill)
+
+
+@needs_cuda
+@pytest.mark.parametrize("relocate", [True, False])
+def test_maintenance_on_card_equals_maintenance_on_cpu(relocate):
+    # the same stream on the card and on the CPU ends in equal state and
+    # counts, sharded and unsharded; after it the unsharded index serves
+    # search (F, E) and a dense batch (D, batched E), the sharded one the
+    # compact engine (A, B)
+    vals = np.random.default_rng(5).integers(0, 2555, 40_003).astype(
+        np.float32)
+    preds = [Predicate.between(float(lo), float(lo + w)) for lo, w in
+             zip(np.random.default_rng(6).integers(0, 2400, 40),
+                 [0, 9, 99] * 14)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        runs = []
+        for make in (lambda t: HippoIndex.create(
+                         t, device=dev, max_slots=8000,
+                         relocate_on_update=relocate),
+                     lambda t: ShardedHippoIndex.create(
+                         t, num_shards=3, device=dev, max_slots=8000,
+                         relocate_on_update=relocate)):
+            idx = make(PagedTable.from_values(vals, 50, spare_pages=70))
+            runs.append(_maintenance_stream(idx, np.random.default_rng(7)))
+            if isinstance(idx, HippoIndex):
+                res = idx.search(preds[2])
+                runs.append((int(res.count), int(res.pages_inspected),
+                             res.qualified.cpu().numpy().tolist()))
+                eng = QueryEngine(idx, batch=16, mode="dense")
+            else:
+                eng = QueryEngine(idx, batch=16, top_k=4, compact_bucket=4)
+            tickets = [eng.submit(p) for p in preds]
+            eng.drain()
+            runs.append([(t.count, t.pages_inspected, t.entries_matched)
+                         for t in tickets])
+        out[dev] = runs
+    assert out["cuda"] == out["cpu"]
 
 
 @needs_cuda

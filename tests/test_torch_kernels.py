@@ -99,7 +99,7 @@ def test_bucketize_plain_equals_pallas():
                            [3.4e38, -3.4e38]]).astype(np.float32)
     ref = np.asarray(pallas_bk(jnp.asarray(vals), jnp.asarray(bounds), h,
                                interpret=True))
-    got = bucketize_values(_t(vals), _t(bounds), h)
+    got = bucketize_values(_t(vals), _t(bounds), h, nan_last=False)
     assert np.array_equal(got.numpy(), ref)
 
 
@@ -135,7 +135,7 @@ def test_bucketize_plain_equals_pallas_on_edge_values(h, n, kind):
     vals = rng.choice(pool, n).astype(np.float32)
     ref = np.asarray(pallas_bk(jnp.asarray(vals), jnp.asarray(bounds), h,
                                interpret=True))
-    got = bucketize_values(_t(vals), _t(bounds), h)
+    got = bucketize_values(_t(vals), _t(bounds), h, nan_last=False)
     assert np.array_equal(got.numpy(), ref)
 
 
