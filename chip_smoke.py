@@ -47,6 +47,32 @@ each of which exits nonzero on failure:
    the peak device memory of the mutations and of the whole phase. The
    bucket probe's inputs in the phase (the insert batch's values, each
    vacuum's re-probed tuples, single values) are kept for phase 3.
+   2d. The maintenance writer on phase 2's sharded index, with the counters
+   set to 0 just before and read just after: ``QueryEngine(batch=64,
+   top_k=32)`` with the default drain policy (``between_batches``, one unit
+   per batch) stages 59,986 writes (one TPC-H RF1 refresh, 0.1% of SF10)
+   of shipdates uniform over the 90 days after the table's last day, one
+   compact batch of 64 predicates (a quarter reaching into the new days)
+   after every 4,096; the drift trigger must schedule a remap of all 4
+   shards at the 256th write, and the batches drain it one unit at a time,
+   then the insert queues. Each batch is timed with its drain and again
+   through a reader engine on the same writer that never drains. Then
+   ``flush``, the ``delete`` of one old day, and 4 batches that drain the
+   vacuums. Every count (table plus live staged rows) and row id equals a
+   brute-force scan on the card. A ``writer`` JSON line carries the staged
+   write times, the drain time per unit kind, the slab patch times, the
+   batch times with and without a drain, the mixed stream's q/s, the
+   engine's drain and drift counters and the peak device memory.
+   2e. Learned summaries, with the counters set to 0 just before and read
+   just after: ``ShardedHippoIndex.create(summary="learned")`` (4 shards,
+   H=400) over ``l_quantity`` of phase 2b's Lineitem (50 distinct values);
+   256 seeded predicates through the compact (``top_k=32``) and routed
+   engines, exact against brute force; then 4,096 staged writes and
+   ``resummarize()``, which must take one learned refit, and the same
+   predicates exact again. A ``learned`` JSON line carries the fit and build
+   times, the model's segments and error, the buckets the build sample
+   occupies under the learned and the equal-mass bounds, and q/s. The index
+   is freed when the phase ends.
 3. Each kernel against its plain PyTorch version on the card, exactly, at
    the main paths' shapes and at ragged edges; then the kernel, the plain
    version and (where one exists) the one PyTorch call that computes the
@@ -60,8 +86,9 @@ each of which exits nonzero on failure:
    time at shard 1's view of the build (a base 8 mod 16), at a predicate
    conversion's 128 values and at each input phase 2c gave it (held there
    with ``nan_last`` set and clear, at the input's own offset within 16
-   bytes). Phase 3 runs after phase 2c, so the filter, the inspection and
-   the bucket probe are held and timed on the mutated index.
+   bytes). Phase 3 runs after phases 2c and 2d, so the filter, the
+   inspection and the bucket probe are held and timed on the mutated and
+   remapped index.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -103,6 +130,12 @@ WIDTHS = (0, 9, 99)              # one day, 10 days, 100 days (inclusive)
 NUM_SEARCHES = 24                # single-query searches of phase 2b
 EAGER_INSERTS = 64               # eager inserts and engine writes of phase 2c
 READ_AFTER_WRITE = 8             # phase 2c's rounds of one write + one batch
+RF1_ROWS = 59_986                # phase 2d: one TPC-H RF1 refresh at SF10
+NEW_DAYS = 90                    # its shipdates: the days after the last
+WRITES_PER_BATCH = 4096          # phase 2d's writes between two batches
+DRIFT_MIN_OBSERVED = 256         # the engine's default drift trigger
+LEARNED_WRITES = 4096            # phase 2e's staged writes before the refit
+QUANTITY_WIDTHS = (0, 4, 23)     # phase 2e: one value, 5 values, Q6's range
 TPCH_SF = 0.01                   # selectivity of the TPC-H windows
 # Kernels of the main path (phase 2) and those ported for the dense and
 # single-query paths (phase 2b); each kernel's launches are read from the run
@@ -261,6 +294,14 @@ def main() -> int:
     # -- 2c. maintenance on the sharded index ---------------------------------
     probes = maintenance_phase(torch, args, K, intervals, QueryEngine, sidx,
                                preds)
+
+    # -- 2d. the maintenance writer on the sharded index ---------------------
+    writer_phase(torch, args, K, intervals, Predicate, QueryEngine, sidx)
+
+    # -- 2e. learned summaries on l_quantity -----------------------------------
+    learned_phase(torch, args, K, intervals, Predicate, QueryEngine,
+                  PagedTable, ShardedHippoIndex, dense["li"])
+    del dense["li"]
 
     # -- 3. kernels against their plain versions, then timed -----------------
     shards = sidx.state.shards
@@ -708,6 +749,318 @@ def maintenance_phase(torch, args, K, intervals, QueryEngine, sidx,
     return probes
 
 
+def brute_check(torch, table, dev, intervals, preds, tickets, pending,
+                what: str) -> None:
+    """Each ticket's count against a brute-force scan of ``table`` on the
+    card plus the live staged values ``pending`` (host), and its row ids,
+    if it has any (staged rows have none yet), against the scan's first
+    ``TOP_K``."""
+    keys_all = table.device_keys(device=dev).reshape(-1)
+    valid_all = table.device_valid(device=dev).reshape(-1)
+    los, his = intervals(preds, dev)
+    for q, p in enumerate(preds):
+        hit = valid_all & (keys_all >= los[q]) & (keys_all <= his[q])
+        count = int(hit.sum()) + int(((pending >= p.lo)
+                                      & (pending <= p.hi)).sum())
+        ids = torch.nonzero(hit)[:TOP_K, 0].cpu().numpy()
+        for t in tickets[q]:
+            if not t.done or t.count != count:
+                fail(f"{what} query {q} {p}: count {t.count} != brute force "
+                     f"{count}")
+            if t.row_ids is not None and not np.array_equal(t.row_ids, ids):
+                fail(f"{what} query {q} {p}: row ids differ from the "
+                     f"brute-force first {TOP_K}")
+
+
+def writer_preds(Predicate, rng, n: int) -> list:
+    """``n`` predicates over the shipdate domain, a quarter of them
+    starting in the last 55 days of the table or the new days after it."""
+    preds = make_preds(Predicate, rng, n - n // 4)
+    for i in range(n // 4):
+        w = WIDTHS[i % len(WIDTHS)]
+        lo = int(rng.integers(SHIPDATE_DAYS - 55, SHIPDATE_DAYS + NEW_DAYS))
+        preds.append(Predicate.between(float(lo), float(lo + w)))
+    return preds
+
+
+def writer_phase(torch, args, K, intervals, Predicate, QueryEngine,
+                 sidx) -> None:
+    """Phase 2d: one RF1 refresh of staged writes, drained between compact
+    batches by the default policy, with the drift remap it triggers, then a
+    delete and its drained vacuums; every batch exact against brute
+    force."""
+    rng = np.random.default_rng(args.seed + 3)
+    table, dev = sidx.table, sidx.device
+    new = rng.integers(SHIPDATE_DAYS, SHIPDATE_DAYS + NEW_DAYS,
+                       RF1_ROWS).astype(np.float32)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    eng = QueryEngine(sidx, batch=BATCH, top_k=TOP_K, mode="compact")
+    if (eng.drain_policy, eng.drain_units) != ("between_batches", 1):
+        fail(f"default drain policy {eng.drain_policy!r} with "
+             f"{eng.drain_units} units, not between_batches with 1")
+    writer = eng.writer
+    reader = QueryEngine(sidx, batch=BATCH, top_k=TOP_K, drain_policy="manual",
+                         writer=writer)
+    drains = {"resummarize": [], "insert": [], "vacuum": []}
+    patches = []
+    drain, refresh = writer.drain, table.refresh_shard_slabs
+
+    def timed_drain(max_units=None):
+        before = dataclasses.replace(writer.stats)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rows = drain(max_units)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = writer.stats
+        kind = ("resummarize" if after.resummarizes > before.resummarizes
+                else "vacuum" if after.vacuums > before.vacuums else "insert")
+        if after.drains - before.drains == 1:
+            drains[kind].append(dt)
+        return rows
+
+    def timed_refresh(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ok = refresh(*a)
+        torch.cuda.synchronize()
+        patches.append((time.perf_counter() - t, len(set(a[0])), ok))
+        return ok
+
+    writer.drain = timed_drain
+    table.refresh_shard_slabs = timed_refresh
+    served = {"with_drain": [], "no_drain": []}
+
+    def round_(what: str, pending: np.ndarray) -> None:
+        preds = writer_preds(Predicate, rng, BATCH)
+        tickets = []
+        for name, e in (("with_drain", eng), ("no_drain", reader)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tickets.append([e.submit(p) for p in preds])
+            e.run_batch()
+            torch.cuda.synchronize()
+            served[name].append(time.perf_counter() - t)
+        depth = writer.queue_depth
+        staged = pending[len(pending) - depth:] if depth else pending[:0]
+        if writer.staged_rows != staged.size:
+            fail(f"{what}: {writer.staged_rows} rows staged, "
+                 f"{staged.size} expected")
+        brute_check(torch, table, dev, intervals, preds,
+                    list(zip(*tickets)), staged, what)
+
+    round_("warm-up batch", new[:0])            # the pruning "before" window
+    served = {k: [] for k in served}
+    lat = []
+    written = 0
+    pages0 = table.num_pages
+    pruning_before = None
+    while written < RF1_ROWS:
+        for v in new[written: written + WRITES_PER_BATCH]:
+            t = time.perf_counter()
+            eng.write(float(v))
+            lat.append(time.perf_counter() - t)
+            written += 1
+            if written == DRIFT_MIN_OBSERVED - 1 and \
+                    writer.pending_resummarize_shards():
+                fail("remap scheduled before drift_min_observed writes")
+            if written == DRIFT_MIN_OBSERVED:
+                if writer.pending_resummarize_shards() != \
+                        list(range(NUM_SHARDS)):
+                    fail(f"no remap of every shard scheduled after "
+                         f"{written} drifting writes")
+                pruning_before = eng.stats.pruning_before_resummarize
+        round_(f"after {written} writes", new[:written])
+    stream_s = sum(lat) + sum(served["with_drain"]) + sum(served["no_drain"])
+    rounds = len(served["with_drain"])
+    if writer.pending_units:
+        fail(f"{writer.pending_units} drain units left after the stream")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    flushed = eng.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t
+    if writer.queue_depth or writer.staged_rows:
+        fail(f"flush left {writer.queue_depth} rows staged")
+    round_("after the flush", new[:0])
+    day = float(rng.integers(0, SHIPDATE_DAYS))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    deleted = eng.delete(day, day)
+    torch.cuda.synchronize()
+    delete_s = time.perf_counter() - t
+    vacuum_units = len(writer.pending_vacuum_shards())
+    if deleted == 0 or vacuum_units == 0:
+        fail(f"delete of day {day}: {deleted} rows, {vacuum_units} dirty "
+             f"shards")
+    for k in range(vacuum_units):
+        round_(f"vacuum batch {k}", new[:0])
+    if writer.pending_units or table.num_dirty:
+        fail(f"{writer.pending_units} units and {table.num_dirty} dirty "
+             f"pages left after the vacuum batches")
+    del writer.drain, table.refresh_shard_slabs
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    if st.resummarizes != NUM_SHARDS or st.drained_rows != RF1_ROWS:
+        fail(f"{st.resummarizes} remaps and {st.drained_rows} drained rows")
+    if not (np.asarray(sidx.bounds_epochs) == 1).all():
+        fail(f"bounds epochs {sidx.bounds_epochs.tolist()} after the remap")
+    with_drain = served["with_drain"][:rounds]
+
+    def ms(xs):
+        return {"median": 1e3 * float(np.median(xs)),
+                "mean": 1e3 * float(np.mean(xs)), "n": len(xs),
+                "all": [1e3 * x for x in xs]}
+
+    print("writer: " + json.dumps({
+        "rf1_rows": RF1_ROWS, "new_days": [SHIPDATE_DAYS,
+                                           SHIPDATE_DAYS + NEW_DAYS],
+        "rounds": rounds, "batch": BATCH, "top_k": TOP_K,
+        "staged_write_us_median": 1e6 * float(np.median(lat)),
+        "staged_write_us_mean": 1e6 * float(np.mean(lat)),
+        "staged_write_us_max": 1e6 * max(lat),
+        "staged_write_us_at_trigger": 1e6 * lat[DRIFT_MIN_OBSERVED - 1],
+        "drain_ms": {k: ms(v) for k, v in drains.items()},
+        "slab_patch_ms": [1e3 * p[0] for p in patches],
+        "slab_patch_shards": [p[1] for p in patches],
+        "slab_patched": all(p[2] for p in patches),
+        "batch_with_drain_ms": ms(with_drain),
+        "batch_with_drain_ms_median_by_kind": {
+            "resummarize": 1e3 * float(np.median(with_drain[:NUM_SHARDS])),
+            "insert": 1e3 * float(np.median(with_drain[NUM_SHARDS:]))},
+        "vacuum_batch_with_drain_ms": ms(served["with_drain"][rounds + 1:]),
+        "batch_no_drain_ms": ms(served["no_drain"]),
+        "mixed_stream_s": stream_s,
+        "mixed_stream_qps": 2 * BATCH * rounds / stream_s,
+        "mixed_stream_writes_per_s": RF1_ROWS / stream_s,
+        "flush_s": flush_s, "flushed_rows": flushed,
+        "deleted_day": day, "deleted_rows": deleted, "delete_s": delete_s,
+        "vacuum_units": vacuum_units,
+        "engine": {"drains": st.drains, "drained_rows": st.drained_rows,
+                   "resummarizes": st.resummarizes,
+                   "edge_overflow_ratio": st.edge_overflow_ratio,
+                   "pruning_before_resummarize": pruning_before,
+                   "pruning_after_resummarize": st.pruning_after_resummarize,
+                   "peak_queue_depth": st.peak_queue_depth,
+                   "writes": st.writes, "deletes": st.deletes},
+        "writer_vacuums": writer.stats.vacuums,
+        "bounds_epochs": sidx.bounds_epochs.tolist(),
+        "pages_before": pages0, "pages_after": table.num_pages,
+        "launches": launches, "memory_allocated_before": held,
+        "max_memory_allocated": peak}))
+    for name in MAIN_KERNELS:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched in the writer phase")
+    print(f"writer checked: {2 * (rounds + 1 + vacuum_units + 1)} batches "
+          f"of {BATCH} counts and row-id lists equal brute force (table "
+          f"plus staged rows)")
+
+
+def learned_phase(torch, args, K, intervals, Predicate, QueryEngine,
+                  PagedTable, ShardedHippoIndex, li) -> None:
+    """Phase 2e: a learned 4-shard index over l_quantity, the compact and
+    routed engines exact against brute force before and after a learned
+    refit of 4,096 staged writes."""
+    import gc
+    from repro_torch.core import histogram as hg
+    from repro_torch.core import learned as ln
+    from repro_torch.core.hippo import sample_keys
+    rng = np.random.default_rng(args.seed + 4)
+    table = PagedTable.from_values(li.quantity, page_card=PAGE_CARD)
+    preds = []
+    for i in range(NUM_PREDS):
+        w = QUANTITY_WIDTHS[i % len(QUANTITY_WIDTHS)]
+        lo = int(rng.integers(1, 51 - w))
+        preds.append(Predicate.between(float(lo), float(lo + w)))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    lidx = ShardedHippoIndex.create(table, num_shards=NUM_SHARDS,
+                                    resolution=RESOLUTION, density=DENSITY,
+                                    summary="learned")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    dev = lidx.device
+    sample = sample_keys(table)
+    t = time.perf_counter()
+    hist, model = ln.build_histogram(sample, RESOLUTION, device=dev)
+    fit_s = time.perf_counter() - t
+    if model is None or not torch.equal(hist.bounds, lidx.state.shards.bounds[0]):
+        fail("the learned fit of the build sample differs from the index's "
+             "bounds")
+    svals = torch.from_numpy(sample).to(dev)
+    occupied = {name: int(torch.unique(hg.bucketize(h, svals)).numel())
+                for name, h in (("learned", hist),
+                                ("equal_mass", hg.build(sample, RESOLUTION,
+                                                        device=dev)))}
+
+    def serve(what):
+        out = {}
+        tickets = []
+        for name, kw in (("compact", {"top_k": TOP_K}),
+                         ("routed", {"mode": "dense"})):
+            eng, tk, qps, first_s = serve_stream(torch, QueryEngine, lidx,
+                                                 preds, **kw)
+            out[name] = {"qps_after_first": qps, "first_batch_s": first_s}
+            tickets.append(tk)
+        brute_check(torch, table, dev, intervals, preds,
+                    list(zip(*tickets)), np.zeros(0, np.float32),
+                    f"learned {what}")
+        return out
+
+    before = serve("build")
+    eng = QueryEngine(lidx, batch=BATCH, top_k=TOP_K)
+    for v in rng.integers(1, 51, LEARNED_WRITES):
+        eng.write(float(v))
+    if eng.stats.learned_refits != 0 or eng.writer.staged_rows != \
+            LEARNED_WRITES:
+        fail(f"before resummarize: {eng.stats.learned_refits} refits, "
+             f"{eng.writer.staged_rows} staged rows")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    remapped = eng.resummarize()
+    torch.cuda.synchronize()
+    resum_s = time.perf_counter() - t
+    if (remapped, eng.stats.learned_refits, eng.writer.queue_depth) != \
+            (NUM_SHARDS, 1, 0):
+        fail(f"resummarize: {remapped} shards remapped, "
+             f"{eng.stats.learned_refits} learned refits, "
+             f"{eng.writer.queue_depth} rows left staged")
+    after = serve("refit")
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    refit = lidx.summary_models[0]
+    print("learned: " + json.dumps({
+        "rows": li.card, "pages_after_writes": table.num_pages,
+        "distinct_values": int(np.unique(sample).size),
+        "shards": NUM_SHARDS, "resolution": RESOLUTION,
+        "fit_s": fit_s, "build_s": build_s,
+        "used_segments": model.used_segments, "max_error": model.max_error,
+        "refit_used_segments": refit.used_segments,
+        "refit_max_error": refit.max_error,
+        "sample_buckets_occupied": occupied,
+        "entries": lidx.num_entries,
+        "serve_build": before, "serve_refit": after,
+        "staged_writes": LEARNED_WRITES, "resummarize_s": resum_s,
+        "learned_refits": eng.stats.learned_refits,
+        "learned_fallbacks": eng.stats.learned_fallbacks,
+        "bounds_epochs": lidx.bounds_epochs.tolist(),
+        "launches": launches, "max_memory_allocated": peak}))
+    for name in MAIN_KERNELS:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched in the learned phase")
+    print(f"learned checked: {len(preds)} counts x 2 engines and row ids "
+          f"equal brute force, before and after the learned refit")
+    del lidx, eng, table, svals, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def at_offset(torch, t, off: int):
     """A copy of ``t`` on the card, ``off`` elements past a 16 B aligned
     base (a slice of a larger tensor, as a shard's view is)."""
@@ -968,7 +1321,7 @@ def dense_paths(torch, args, K, Predicate, intervals, QueryEngine, sidx,
             fail(f"kernel {name} was not launched on the dense paths")
     print(f"dense paths checked: {len(spreds)} tuple masks, Q6/Q15/Q20 and "
           f"{len(preds)} counts x 3 dense engines equal brute force")
-    return {"hidx": hidx, "launches": launches}
+    return {"hidx": hidx, "launches": launches, "li": li}
 
 
 EDGE_VALUES = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, -1.0, 1.0, 2.0,

@@ -18,6 +18,10 @@ Keys of ``arrays``:
   keys, valid, num_pages, fill                               the PagedTable
   dirty, num_dirty  optional: the table's VACUUM notes (deletes pending
                     vacuum); absent, the table is clean
+  bounds_epochs, summary
+                    optional (sharded only): the per-shard bounds epochs of
+                    a remapped index and its summary policy; absent, every
+                    shard is at epoch 0 under "equal_mass"
 """
 from __future__ import annotations
 
@@ -74,8 +78,14 @@ def from_arrays(arrays: dict, device=None) -> ShardedHippoIndex:
     if shards.bitmaps.shape[:2] != (spec.num_shards, cfg.max_slots):
         raise ValueError(f"bitmaps {tuple(shards.bitmaps.shape)} do not match "
                          f"{spec.num_shards} shards x {cfg.max_slots} slots")
+    epochs = np.asarray(arrays.get("bounds_epochs",
+                                   np.zeros(spec.num_shards)), np.int64)
+    if epochs.shape != (spec.num_shards,):
+        raise ValueError(f"bounds_epochs {epochs.shape} do not match "
+                         f"{spec.num_shards} shards")
     return ShardedHippoIndex(cfg=cfg, spec=spec, state=state, table=table,
-                             device=dev)
+                             device=dev, bounds_epochs=epochs.copy(),
+                             summary=str(arrays.get("summary", "equal_mass")))
 
 
 def hippo_index_from_arrays(arrays: dict, device=None) -> HippoIndex:

@@ -8,6 +8,10 @@ edge buckets, and a NaN value lands in bucket H-1. ``bucketize`` goes
 through the bucket-probe kernel (``kernels.bucketize``) on CUDA and its
 plain version on the CPU.
 
+Drift telemetry and the boundary rebuild (``DriftTracker``, ``rebuild``,
+``host_bounds``) are host numpy, copied from the reference; a histogram they
+return lives on the device of the histogram it came from.
+
 ``build`` reproduces ``jnp.quantile`` bit for bit. ``np.quantile`` and
 ``torch.quantile`` do not: on a float32 sample XLA computes the linear
 interpolation in float32 with the high term fused into an FMA, so about one
@@ -139,3 +143,129 @@ def strict_float32_bounds(bounds: np.ndarray) -> np.ndarray:
         if b32[i] <= b32[i - 1]:
             b32[i] = np.nextafter(b32[i - 1], np.float32(np.inf))
     return b32
+
+
+def host_bounds(hist: Histogram) -> np.ndarray:
+    """The bounds as a host float32 array (a copy: it never aliases the
+    state's tensor)."""
+    return hist.bounds.cpu().numpy().copy()
+
+
+# ---------------------------------------------------------------------------
+# Drift telemetry + incremental boundary rebuild (copied from the reference)
+# ---------------------------------------------------------------------------
+
+class DriftTracker:
+    """Insert-stream drift telemetry against a fixed boundary set.
+
+    Host-side and O(log H) per observed value: each insert is bucketized
+    against the armed bounds (per-bucket hit counters, ``np.searchsorted``,
+    so a NaN value lands in bucket H-1 as in the reference), counted as
+    out-of-range if it falls outside [bounds[0], bounds[-1]), and offered to
+    a fixed-size reservoir (algorithm R, the reference's seeded generator)
+    so ``rebuild`` later sees an unbiased sample of the whole stream since
+    the last ``rearm``.
+
+    ``edge_overflow_ratio`` is the drift signal: the fraction of observed
+    inserts that clamped into the two edge buckets.
+    """
+
+    def __init__(self, hist: Histogram, reservoir_size: int = 4096,
+                 seed: int = 0):
+        self._reservoir_size = reservoir_size
+        self._seed = seed
+        self.rearm(hist)
+
+    def rearm(self, hist: Histogram) -> None:
+        """Reset every counter and the reservoir against new bounds."""
+        self._device = hist.bounds.device
+        self._bounds = host_bounds(hist)
+        self.resolution = self._bounds.shape[0] - 1
+        self.hits = np.zeros((self.resolution,), np.int64)
+        self.observed = 0
+        self.out_of_range = 0
+        self.reservoir = np.empty((self._reservoir_size,), np.float32)
+        self._res_fill = 0
+        self._rng = np.random.default_rng(self._seed)
+
+    def observe(self, values) -> None:
+        """Fold a batch (or scalar) of inserted values into the telemetry:
+        one ``searchsorted`` for the counters and one batched algorithm-R
+        admission for the reservoir, equal to the per-value loop."""
+        vals = np.asarray(values, np.float32).ravel()
+        if vals.size == 0:
+            return
+        ids = np.clip(np.searchsorted(self._bounds, vals, side="right") - 1,
+                      0, self.resolution - 1)
+        np.add.at(self.hits, ids, 1)
+        self.out_of_range += int(((vals < self._bounds[0])
+                                  | (vals >= self._bounds[-1])).sum())
+        start = self.observed
+        self.observed += vals.size
+        # fill the reservoir's empty prefix directly ...
+        take = min(self.reservoir.size - self._res_fill, vals.size)
+        if take > 0:
+            self.reservoir[self._res_fill: self._res_fill + take] = vals[:take]
+            self._res_fill += take
+        rest = vals[take:]
+        if rest.size == 0:
+            return
+        # ... then admit the overflow: value k (1-based running count c_k)
+        # replaces a uniform slot j ~ [0, c_k) when j lands in the reservoir
+        counts = start + take + 1 + np.arange(rest.size, dtype=np.int64)
+        j = self._rng.integers(0, counts)
+        admit = j < self.reservoir.size
+        self.reservoir[j[admit]] = rest[admit]
+
+    @property
+    def armed_histogram(self) -> Histogram:
+        """The boundary set drift is currently measured against, on the
+        device of the histogram it was armed with."""
+        return Histogram(torch.from_numpy(self._bounds.copy()).to(
+            self._device))
+
+    @property
+    def edge_overflow_ratio(self) -> float:
+        """Fraction of observed inserts that landed in an edge bucket; 0.0
+        before anything is observed."""
+        if not self.observed:
+            return 0.0
+        return float(self.hits[0] + self.hits[-1]) / self.observed
+
+    def sample(self) -> np.ndarray:
+        """Copy of the reservoir's filled prefix (<= reservoir_size values)."""
+        return self.reservoir[: self._res_fill].copy()
+
+
+def rebuild(hist: Histogram, sample: np.ndarray, resolution: int | None = None,
+            *, old_count: int | None = None, new_count: int | None = None
+            ) -> Histogram:
+    """New equi-depth boundary set after drift, without re-reading the table:
+    a weighted quantile over {old boundary points, reservoir sample points}
+    (``old_count``/``new_count`` weight the two sets; default equal mass),
+    finalized by ``strict_float32_bounds``. The result is on ``hist``'s
+    device."""
+    sample = np.sort(np.asarray(sample, np.float32).ravel())
+    if sample.size == 0:
+        raise ValueError("rebuild needs a non-empty sample of recent inserts")
+    if resolution is None:
+        resolution = hist.resolution
+    old_pts = host_bounds(hist).astype(np.float64)
+    old_count = sample.size if old_count is None else max(int(old_count), 0)
+    new_count = sample.size if new_count is None else max(int(new_count), 0)
+    if old_count + new_count == 0:
+        old_count = new_count = 1
+    pts = np.concatenate([old_pts, sample.astype(np.float64)])
+    wts = np.concatenate([
+        np.full(old_pts.size, old_count / old_pts.size),
+        np.full(sample.size, new_count / sample.size)])
+    order = np.argsort(pts, kind="stable")
+    pts, wts = pts[order], wts[order]
+    cum = np.cumsum(wts)
+    cum /= cum[-1]
+    qs = np.linspace(0.0, 1.0, resolution + 1)
+    bounds = np.interp(qs, cum, pts)
+    bounds[0] = pts[0]          # edges cover the full blended range
+    bounds[-1] = pts[-1]
+    return Histogram(bounds=torch.from_numpy(strict_float32_bounds(bounds)).to(
+        hist.bounds.device))

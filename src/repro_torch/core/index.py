@@ -48,8 +48,11 @@ given (a caller may hold it as a rollback snapshot):
                         into fresh bitmaps the same way
   resummarize_shard     the same for every live entry under new bounds
 
-The writer's staged overlay comes with the writer (ROADMAP.md, queue 1 item
-10).
+The writer's staged overlay (``staged_overlay_counts``) adds the rows a
+``runtime.writer.MaintenanceWriter`` holds staged to the counts of
+``search_many_sharded_staged`` and ``search_compact_many_sharded_staged``;
+staged rows occupy no page yet, so they never enter row ids, page masks or
+``truncated``.
 """
 from __future__ import annotations
 
@@ -348,6 +351,45 @@ def search_many_sharded(shards: HippoState, query_bitmaps: torch.Tensor,
     )
 
 
+def staged_overlay_counts(staged_vals: torch.Tensor,
+                          staged_live: torch.Tensor, los: torch.Tensor,
+                          his: torch.Tensor) -> torch.Tensor:
+    """Exact counts of staged-but-undrained rows per query: (Q,) int32, the
+    rows v of ``staged_vals`` (S, B) f32 with ``staged_live`` set and
+    lo <= v <= hi, summed over shards.
+
+    The reference forms the (Q, S, B) compare; here each shard's live,
+    non-NaN values are sorted into a prefix (the rest pushed past it as
+    +inf) and two binary searches per (shard, query), clamped to the prefix
+    length, give the same counts: a NaN value, a NaN endpoint and an empty
+    interval (lo > hi) count nothing, as the compare does.
+    """
+    ok = staged_live & ~torch.isnan(staged_vals)
+    n_ok = ok.sum(dim=1, keepdim=True)                            # (S, 1)
+    srt = torch.where(ok, staged_vals, torch.inf).sort(dim=1).values
+    s = srt.shape[0]
+    lo = los[None, :].expand(s, -1).contiguous()
+    hi = his[None, :].expand(s, -1).contiguous()
+    upper = torch.searchsorted(srt, hi, right=True).clamp(max=n_ok)
+    lower = torch.searchsorted(srt, lo).clamp(max=n_ok)
+    n = (upper - lower).clamp(min=0)
+    n = torch.where(torch.isnan(lo) | torch.isnan(hi), 0, n)       # (S, Q)
+    return n.sum(dim=0, dtype=torch.int32)
+
+
+def search_many_sharded_staged(shards: HippoState, query_bitmaps: torch.Tensor,
+                               keys: torch.Tensor, valid: torch.Tensor,
+                               los: torch.Tensor, his: torch.Tensor,
+                               staged_vals: torch.Tensor,
+                               staged_live: torch.Tensor) -> BatchSearchResult:
+    """``search_many_sharded`` plus the staging-buffer overlay: counts gain
+    the staged rows matching each predicate; ``page_mask``,
+    ``pages_inspected`` and ``entries_matched`` stay index-only."""
+    res = search_many_sharded(shards, query_bitmaps, keys, valid, los, his)
+    return res._replace(counts=res.counts + staged_overlay_counts(
+        staged_vals, staged_live, los, his))
+
+
 # ---------------------------------------------------------------------------
 # Compact batch search (gather-then-inspect)
 # ---------------------------------------------------------------------------
@@ -464,6 +506,24 @@ def search_compact_many_sharded(shards: HippoState, query_bitmaps: torch.Tensor,
         pages_gathered=n_union.clamp(max=max_selected).sum(dtype=torch.int32),
         row_ids=row_ids,
     )
+
+
+def search_compact_many_sharded_staged(shards: HippoState,
+                                       query_bitmaps: torch.Tensor,
+                                       keys: torch.Tensor, valid: torch.Tensor,
+                                       los: torch.Tensor, his: torch.Tensor,
+                                       staged_vals: torch.Tensor,
+                                       staged_live: torch.Tensor, *,
+                                       max_selected: int, top_k: int = 0
+                                       ) -> CompactBatchResult:
+    """``search_compact_many_sharded`` plus the staging-buffer overlay:
+    counts gain the staged rows matching each predicate; row ids,
+    ``pages_inspected`` and ``truncated`` stay index-only."""
+    res = search_compact_many_sharded(shards, query_bitmaps, keys, valid,
+                                      los, his, max_selected=max_selected,
+                                      top_k=top_k)
+    return res._replace(counts=res.counts + staged_overlay_counts(
+        staged_vals, staged_live, los, his))
 
 
 def search_compact_many(state: HippoState, query_bitmaps: torch.Tensor,

@@ -4,9 +4,7 @@
 The page space is split into S contiguous slabs of ``pages_per_shard``
 pages, and every shard carries a full, independent Hippo structure over its
 slab (entry page ids local to the slab). On one card the shard axis is a
-batch dimension of every tensor. Each shard carries its own bounds row, so
-predicates convert per bounds epoch into (S, Q, W) query bitmaps; all shards
-share one epoch until drift re-summarization is ported.
+batch dimension of every tensor.
 
 Ported here: ``ShardSpec``, ``ShardedHippoState``, ``summary_of``,
 ``set_shard``, ``build_sharded`` and ``ShardedHippoIndex``: the fused
@@ -14,9 +12,21 @@ compact and dense batches, one shard's dense batch, ``plan_batch`` (the
 summary test of every query against every shard, which the engine's routed
 dispatch reads), and maintenance routed to the owning shard: the eager
 ``insert``, the atomic ``insert_batch``, ``vacuum`` and ``vacuum_shard``,
-each recomputing the touched shard's summary. The writer attachment
-(``staging``) stays None until the writer is ported (ROADMAP.md, queue 1
-item 10).
+each recomputing the touched shard's summary.
+
+Summary policies (``SUMMARY_POLICIES``): ``equal_mass`` builds the bounds as
+quantiles of the build sample, ``learned`` fits them with
+``core.learned.build_histogram`` (the same sample); the writer's drift refits
+follow the index's policy.
+
+A ``runtime.writer.MaintenanceWriter`` attaches as ``staging``: the fused
+dense and compact batches add its staged rows to their counts, and it sets
+``swap_in_flight`` while a drain swaps a shard, which every query and
+maintenance surface refuses. Bounds epochs: every shard carries its own
+bounds row; a drift remap moves shards onto new bounds one drain unit at a
+time, bumping ``bounds_epochs[s]``, and predicates convert per distinct
+bounds row into (S, Q, W) query bitmaps, so counts stay exact while shards
+sit on different epochs.
 """
 from __future__ import annotations
 
@@ -29,7 +39,9 @@ import torch
 from repro_torch.core import bitmap as bm
 from repro_torch.core import histogram as hg
 from repro_torch.core import index as hix
-from repro_torch.core.hippo import MaintenanceCounters, sample_histogram
+from repro_torch.core import learned as ln
+from repro_torch.core.hippo import (MaintenanceCounters, sample_histogram,
+                                    sample_keys)
 from repro_torch.core.predicate import (Predicate, _nonempty, intervals,
                                         interval_bitmaps_sharded,
                                         to_bucket_bitmaps)
@@ -121,13 +133,30 @@ class ShardedHippoIndex:
     table: PagedTable
     device: torch.device
     counters: MaintenanceCounters = field(default_factory=MaintenanceCounters)
-    # The attached writer (None: maintenance is synchronous). No writer is
-    # ported yet, so it stays None.
+    # The attached ``runtime.writer.MaintenanceWriter`` (None: maintenance is
+    # synchronous); its staged rows overlay into the fused batches' counts.
     staging: object | None = field(default=None, repr=False, compare=False)
     # Shard id a writer drain is swapping (None otherwise); queries and
-    # maintenance refuse while set. Without a writer it stays None.
+    # maintenance refuse while set.
     swap_in_flight: int | None = field(default=None, repr=False, compare=False)
+    # Per-shard bounds epoch, bumped when a drift remap moves shard s onto
+    # new bounds.
+    bounds_epochs: np.ndarray = field(default=None, repr=False, compare=False)
+    # Summary policy (SUMMARY_POLICIES), read by the writer at every
+    # ``schedule_resummarize``.
     summary: str = "equal_mass"
+    # Per-shard learned model (``learned.PiecewiseLinearModel``) whose bounds
+    # shard s serves; None under equal-mass bounds or after a fallback.
+    summary_models: list = field(default=None, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.bounds_epochs is None:
+            self.bounds_epochs = np.zeros((self.spec.num_shards,), np.int64)
+        if self.summary not in SUMMARY_POLICIES:
+            raise ValueError(f"summary must be one of {SUMMARY_POLICIES}, "
+                             f"got {self.summary!r}")
+        if self.summary_models is None:
+            self.summary_models = [None] * self.spec.num_shards
 
     # -- creation ------------------------------------------------------------
 
@@ -147,10 +176,6 @@ class ShardedHippoIndex:
         if summary not in SUMMARY_POLICIES:
             raise ValueError(f"summary must be one of {SUMMARY_POLICIES}, "
                              f"got {summary!r}")
-        if summary == "learned":
-            raise NotImplementedError(
-                "summary='learned' is not ported yet (ROADMAP.md, queue 1 "
-                "item 12: core/learned.py)")
         if pages_per_shard is None:
             target = int(table.num_pages * 1.25) + 64
             pages_per_shard = -(-target // num_shards)
@@ -164,11 +189,20 @@ class ShardedHippoIndex:
         cfg = hix.HippoConfig(resolution=resolution, density=density,
                               page_card=table.page_card, max_slots=max_slots,
                               relocate_on_update=relocate_on_update)
+        model = None
         if hist is None:
-            hist = sample_histogram(table, resolution, sample_size, device=dev)
+            if summary == "learned":
+                # the equal-mass path's build sample, fitted instead of
+                # quantiled; a degenerate sample falls back inside
+                hist, model = ln.build_histogram(
+                    sample_keys(table, sample_size), resolution, device=dev)
+            else:
+                hist = sample_histogram(table, resolution, sample_size,
+                                        device=dev)
         state = build_sharded(cfg, spec, hist, table, dev)
         return ShardedHippoIndex(cfg=cfg, spec=spec, state=state, table=table,
-                                 device=dev, summary=summary)
+                                 device=dev, summary=summary,
+                                 summary_models=[model] * num_shards)
 
     # -- device views --------------------------------------------------------
 
@@ -219,13 +253,19 @@ class ShardedHippoIndex:
         """Fused dense path (``core.index.search_many_sharded``): every shard
         at once, counts reduced across the shard axis; ``page_mask`` in
         global page order, trimmed to the table's pages. Counts equal the
-        unsharded ``HippoIndex.search_batch``'s."""
+        unsharded ``HippoIndex.search_batch``'s; with a writer attached they
+        also include its live staged rows."""
         self._check_swap_guard()
         qbms = self._query_bitmaps(preds)
         los, his = intervals(preds, self.device)
         keys, valid = self._slabs()
-        res = hix.search_many_sharded(self.state.shards, qbms, keys, valid,
-                                      los, his)
+        if self.staging is not None and self.staging.staged_rows:
+            vals, live = self.staging.device_buffers()
+            res = hix.search_many_sharded_staged(self.state.shards, qbms, keys,
+                                                 valid, los, his, vals, live)
+        else:
+            res = hix.search_many_sharded(self.state.shards, qbms, keys,
+                                          valid, los, his)
         return res._replace(page_mask=res.page_mask[:, : self.table.num_pages])
 
     def search_compact_batch(self, preds: list[Predicate], *,
@@ -235,11 +275,18 @@ class ShardedHippoIndex:
         (``core.index.search_compact_many_sharded``): each shard selects its
         own ``max_selected``-page slab of the batch union and inspects every
         predicate against it, counts reduced across shards. Row ids are
-        global (``page_id * page_card + slot``)."""
+        global (``page_id * page_card + slot``). With a writer attached the
+        counts also include its live staged rows, which occupy no page yet:
+        they never enter row ids and cannot truncate."""
         self._check_swap_guard()
         qbms = self._query_bitmaps(preds)
         los, his = intervals(preds, self.device)
         keys, valid = self._slabs()
+        if self.staging is not None and self.staging.staged_rows:
+            vals, live = self.staging.device_buffers()
+            return hix.search_compact_many_sharded_staged(
+                self.state.shards, qbms, keys, valid, los, his, vals, live,
+                max_selected=max_selected, top_k=top_k)
         return hix.search_compact_many_sharded(
             self.state.shards, qbms, keys, valid, los, his,
             max_selected=max_selected, top_k=top_k)
@@ -262,7 +309,8 @@ class ShardedHippoIndex:
         """Array form of ``search_batch_shard`` for callers that converted
         the predicates once (``plan_batch``): qbms (Q, W) int32 packed words,
         los/his (Q,) f32, on the index's device. Counts are index-only
-        (``core.index.search_many`` on shard s)."""
+        (``core.index.search_many`` on shard s): the engine's routed
+        dispatch adds the writer's staged rows itself."""
         self._check_swap_guard()
         keys, valid = self._slabs()
         return hix.search_many(hix.shard_state(self.state.shards, s), qbms,
@@ -461,7 +509,8 @@ class ShardedHippoIndex:
     @property
     def histogram(self) -> hg.Histogram:
         """The histogram every shard shares while all sit on one bounds
-        epoch (always, until drift re-summarization is ported)."""
+        epoch (always, outside a partly drained remap); epoch-aware code
+        reads ``shard_histogram``."""
         return self.shard_histogram(0)
 
     @property

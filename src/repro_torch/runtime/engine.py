@@ -31,17 +31,30 @@ the reference's for the same stream:
              skipped (``EngineStats.shards_pruned``), and counts sum over the
              dispatched shards.
 
-Writes under ``drain_policy="sync"`` (the default on an unsharded index):
-``write`` runs Algorithm 3 on the spot (``index.insert``), ``delete`` marks
-the tuples deleted and vacuums if any was, ``flush`` has nothing to drain;
-``EngineStats.writes``/``deletes`` count them as the reference does.
+Writes (``runtime.writer.MaintenanceWriter``): ``write()``/``delete()``
+stage maintenance instead of running Algorithm 3 on the query path; staged
+rows are overlaid into counts so results never go stale, and the engine
+drains shard queues under one of the reference's interleave policies:
 
-Not ported yet, and refused with ``NotImplementedError``: the writer-backed
-engine that every other policy selects (a ``ShardedHippoIndex`` with the
-default policy resolves to ``between_batches``, as in the reference): its
-writes, deletes, drains and drift re-summarization (ROADMAP.md queue 1 item
-10), and durable storage (item 13). Reads never touch a writer, so the read
-stream's tickets and stats are unaffected.
+  sync             no writer — ``write`` runs Algorithm 3 on the spot
+                   (``index.insert``) and ``delete`` vacuums at once (the
+                   default on an unsharded index)
+  between_batches  before each ``run_batch`` admits, drain up to
+                   ``drain_units`` units (the default on a sharded index)
+  on_depth         drain everything once the backlog (staged tuples plus
+                   pages dirtied by deletes) reaches ``drain_depth``, checked
+                   on writes and deletes
+  manual           drain only on ``flush()``
+
+Drift re-summarization: once ``drift_min_observed`` inserts were staged
+since the last remap and their edge-bucket overflow ratio reaches
+``drift_threshold``, the engine schedules a remap of every shard (one drain
+unit per shard, drained by the policy); ``resummarize()`` does it on demand.
+``EngineStats`` carries the queue, drain and drift figures and the pruning
+window around the last remap, as the reference's does.
+
+Durable storage (``storage_dir``) is not ported yet and is refused with
+``NotImplementedError`` (ROADMAP.md queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -53,6 +66,7 @@ import torch
 
 from repro_torch.core.partition import SUMMARY_POLICIES
 from repro_torch.core.predicate import Predicate
+from repro_torch.runtime.writer import MaintenanceWriter
 
 _EMPTY = Predicate(lo=1.0, hi=0.0)   # lo > hi: matches nothing
 
@@ -70,11 +84,6 @@ _FALLBACK_Q_MIN = 8       # smallest fallback query width
 
 _DRAIN_POLICIES = ("sync", "between_batches", "on_depth", "manual")
 _MODES = ("auto", "compact", "dense")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"queue 1 {item})")
 
 
 @dataclass
@@ -95,10 +104,10 @@ class QueryTicket:
 
 @dataclass
 class EngineStats:
-    """The reference's ``EngineStats`` fields; the writer, persistence and
-    drift fields stay 0 until those slices land. In routed dense mode the
-    slot counters count per-shard dispatch widths (a query sent to several
-    shards fills one slot in each)."""
+    """The reference's ``EngineStats`` fields; the persistence fields stay 0
+    until durable storage lands. In routed dense mode the slot counters count
+    per-shard dispatch widths (a query sent to several shards fills one slot
+    in each)."""
     submitted: int = 0
     served: int = 0
     batches: int = 0
@@ -177,6 +186,12 @@ class QueryEngine:
     qualifying global row ids, and ``compact_bucket`` seeds the adaptive slab
     bucket. The index's device is the engine's: an index created with
     ``device=None`` serves on the card.
+
+    ``drain_policy``, ``drain_units``, ``drain_depth`` and ``writer`` select
+    the maintenance interleave (see the module docstring); the drift knobs
+    (``drift_threshold``, ``auto_resummarize``, ``drift_min_observed``) and
+    ``summary`` (the boundary policy of the remaps this engine schedules;
+    None: the index's own) apply to writer-backed engines.
     """
 
     def __init__(self, index, batch: int = 64, sharded: bool | None = None,
@@ -225,8 +240,6 @@ class QueryEngine:
             raise ValueError(f"compact_bucket must be >= 1, got {compact_bucket}")
         self._compact_bucket = _pow2_at_least(compact_bucket
                                               or _COMPACT_BUCKET_MIN)
-        # The maintenance knobs are resolved and validated as the reference
-        # does; writes run only under "sync" until the writer is ported.
         supports_writer = hasattr(index, "plan_batch")
         if drain_policy is None:
             drain_policy = "between_batches" if supports_writer else "sync"
@@ -239,8 +252,12 @@ class QueryEngine:
                 "(per-shard queues route by ShardSpec); use "
                 "drain_policy='sync' for an unsharded index")
         self.drain_policy = drain_policy
-        if writer is not None:
-            raise _not_ported("the maintenance writer", "item 10")
+        self.drain_units = drain_units
+        self.drain_depth = drain_depth
+        if writer is not None and writer.index is not index:
+            raise ValueError("writer is bound to a different index than the "
+                             "engine's — its staged rows and drains would "
+                             "target the wrong index")
         if drift_threshold is not None and not 0.0 < drift_threshold <= 1.0:
             raise ValueError(f"drift_threshold must be in (0, 1] or None, "
                              f"got {drift_threshold}")
@@ -248,11 +265,21 @@ class QueryEngine:
             raise ValueError(f"summary must be one of {SUMMARY_POLICIES} or "
                              f"None (the index's policy), got {summary!r}")
         if storage_dir is not None:
-            raise _not_ported("durable storage (storage_dir)", "item 13")
+            raise NotImplementedError(
+                "durable storage (storage_dir) is not ported yet (ROADMAP.md, "
+                "queue 1 item 13)")
+        if writer is None and drain_policy != "sync":
+            writer = MaintenanceWriter(index)
+        self.writer = writer
+        self.drift_threshold = drift_threshold
+        self.auto_resummarize = auto_resummarize
+        self.drift_min_observed = drift_min_observed
+        self.summary = summary
         self.slots: list[QueryTicket | None] = [None] * batch
         self.queue: deque[QueryTicket] = deque()
         self.stats = EngineStats()
         self._next_qid = 0
+        self._auto_drain_suspended = False
 
     # -- admission -----------------------------------------------------------
 
@@ -274,46 +301,136 @@ class QueryEngine:
 
     # -- writes --------------------------------------------------------------
 
-    def _require_sync(self, what: str) -> None:
-        if self.drain_policy != "sync":
-            raise _not_ported(
-                f"QueryEngine.{what} under drain_policy="
-                f"{self.drain_policy!r} (the maintenance writer)", "item 10")
-
     def write(self, value: float) -> None:
-        """Insert one tuple: Algorithm 3 on the spot (sync policy)."""
-        self._require_sync("write")
+        """Insert one tuple. Under sync, Algorithm 3 on the spot; otherwise
+        the row is staged in its shard's queue and drained by the policy.
+        Counts include the row either way."""
         self.stats.writes += 1
-        self.index.insert(float(value))
+        if self.writer is None:
+            self.index.insert(float(value))
+            return
+        self.writer.write(float(value))
+        self._maybe_schedule_resummarize()
+        if (self.drain_policy == "on_depth"
+                and self._maintenance_backlog() >= self.drain_depth):
+            self._drain(None)
+        self._sync_writer_stats()
 
     def delete(self, lo: float, hi: float) -> int:
-        """Delete tuples with key in [lo, hi] and vacuum if any was deleted
-        (sync policy; queries stay exact either way, §5.2). Returns tuples
-        deleted."""
-        self._require_sync("delete")
-        n = self.index.table.delete_where(lo, hi)
-        if n:   # a no-op delete dirtied nothing: skip the vacuum
-            self.index.vacuum()
+        """Delete tuples with key in [lo, hi]; the validity update is
+        immediate (queries stay exact, §5.2). Under sync the vacuum runs at
+        once (skipped if nothing was deleted); otherwise the dirty shards
+        queue vacuum units. Returns tuples deleted (staged rows included)."""
+        if self.writer is None:
+            n = self.index.table.delete_where(lo, hi)
+            if n:   # a no-op delete dirtied nothing: skip the vacuum
+                self.index.vacuum()
+            self.stats.deletes += n
+            return n
+        n = self.writer.delete(lo, hi)
         self.stats.deletes += n
+        # deletes add vacuum work, not queue depth: the on_depth trigger
+        # must fire here too
+        if (self.drain_policy == "on_depth"
+                and self._maintenance_backlog() >= self.drain_depth):
+            self._drain(None)
+        self._sync_writer_stats()
         return n
 
     def flush(self) -> int:
-        """Drain pending maintenance: nothing is pending under sync."""
-        self._require_sync("flush")
-        return 0
+        """Drain every pending remap, shard queue and vacuum now. Returns
+        staged rows applied to the index (0 under sync)."""
+        if self.writer is None:
+            return 0
+        return self._drain(None)
 
     def resummarize(self, bounds=None) -> int:
-        self._require_sync("resummarize")
-        raise RuntimeError(
-            "resummarize needs a writer-backed engine (an async "
-            "drain_policy on a ShardedHippoIndex)")
+        """Schedule a remap of every shard (bounds rebuilt from the drift
+        reservoir unless given) and drain it now, with any other pending
+        maintenance. Returns remap units applied."""
+        if self.writer is None:
+            raise RuntimeError(
+                "resummarize needs a writer-backed engine (an async "
+                "drain_policy on a ShardedHippoIndex)")
+        before = self.writer.stats.resummarizes
+        # may refuse (no sample): then the stats stay intact
+        self.writer.schedule_resummarize(bounds, policy=self.summary)
+        self._mark_resummarize_window()
+        self._drain(None)
+        return self.writer.stats.resummarizes - before
+
+    def _maintenance_backlog(self) -> int:
+        """What ``on_depth`` measures: staged tuples plus table pages dirtied
+        by deletes and awaiting their vacuum."""
+        return self.writer.queue_depth + self.index.table.num_dirty
+
+    def _maybe_schedule_resummarize(self) -> None:
+        """The drift trigger: schedule a remap of every shard once enough
+        inserts were observed and their edge-bucket overflow ratio crosses
+        the threshold; idempotent while a remap is pending."""
+        w = self.writer
+        if (not self.auto_resummarize or self.drift_threshold is None
+                or w is None or w.pending_resummarize_shards()):
+            return
+        d = w.drift
+        if (d.observed >= self.drift_min_observed
+                and d.edge_overflow_ratio >= self.drift_threshold):
+            w.schedule_resummarize(policy=self.summary)
+            self._mark_resummarize_window()
+
+    def _mark_resummarize_window(self) -> None:
+        """Close the pruning-quality window: the ratio so far becomes the
+        "before" figure, and the window restarts."""
+        st = self.stats
+        st.pruning_before_resummarize = st.pruning_after_resummarize
+        st.window_selected_pages = 0
+        st.window_table_pages = 0
+
+    def _drain(self, max_units: int | None) -> int:
+        try:
+            rows = self.writer.drain(max_units)
+        finally:
+            # a refused drain may have applied some units: report them
+            self._sync_writer_stats()
+        self._auto_drain_suspended = False      # a successful drain re-arms
+        return rows
+
+    def _sync_writer_stats(self) -> None:
+        w = self.writer
+        st = self.stats
+        st.drains = w.stats.drains
+        st.drained_rows = w.stats.drained_rows
+        st.drain_us = w.stats.total_drain_us
+        st.queue_depth = w.queue_depth
+        st.staged_rows = w.staged_rows
+        st.peak_queue_depth = max(st.peak_queue_depth, w.queue_depth)
+        st.resummarizes = w.stats.resummarizes
+        st.edge_overflow_ratio = w.drift.edge_overflow_ratio
+        st.learned_refits = w.stats.learned_refits
+        st.learned_fallbacks = w.stats.learned_fallbacks
+
+    def _maybe_drain_between_batches(self) -> None:
+        """The between-batches drain. A refusal (shard slot capacity) raises
+        once, then suspends auto-draining so queries keep serving exactly
+        through the overlay; a successful ``flush()`` re-arms it."""
+        if (self.writer is None or self.drain_policy != "between_batches"
+                or self._auto_drain_suspended
+                or not self.writer.pending_units):
+            return
+        try:
+            self._drain(self.drain_units)
+        except RuntimeError:
+            self._auto_drain_suspended = True
+            raise
 
     # -- execution ------------------------------------------------------------
 
     def run_batch(self) -> list[QueryTicket]:
         """Admit queued queries into free slots and execute one batch (in
         routed mode, one dispatch per matched shard). Returns the tickets
-        retired by this batch."""
+        retired by this batch. Under ``between_batches`` the drain runs
+        first, so a refusal raises before any query work."""
+        self._maybe_drain_between_batches()
         self._admit()
         active = [i for i, t in enumerate(self.slots) if t is not None]
         if not active:
@@ -399,6 +516,14 @@ class QueryEngine:
             st.pad_slots += width - n
             st.shard_queries[s] = st.shard_queries.get(s, 0) + n
             st.shard_slots[s] = st.shard_slots.get(s, 0) + width
+        # Staged rows belong to no entry yet, so summary routing cannot see
+        # them: their counts add on top. Read from the index's attached
+        # writer, which a sync engine or a superseded writer's engine must
+        # see too.
+        staging = getattr(self.index, "staging", None)
+        if staging is not None and staging.staged_rows:
+            counts += staging.staged_counts(los.cpu().numpy(),
+                                            his.cpu().numpy()).sum(axis=1)
         return counts, inspected, matched
 
     def _execute_compact(self, active: list[int]) -> tuple:

@@ -12,8 +12,8 @@ Mutations are host-side numpy, as in the reference: appends (``insert``,
 tuples invalid and sets the per-page ``dirty`` note that VACUUM consumes
 (§5.2), ``clear_dirty`` and the rollback ``truncate_to``. Every mutation
 drops the unsharded view and marks the slab view stale, so the next query
-uploads the table again. ``refresh_shard_slabs`` (the writer's patch of
-single slabs) comes with the writer (ROADMAP.md, queue 1 item 10).
+uploads the table again, unless the writer patches the slabs its mutation
+touched back into the cached view (``refresh_shard_slabs``).
 
 Device views follow the port's device rule: ``device=None`` is the card.
 """
@@ -149,6 +149,45 @@ class PagedTable:
             self._dev_shard = (key, keys, valid)
             self._dev_shard_stale = False
         return self._dev_shard
+
+    def _host_slab(self, s: int, pages_per_shard: int
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        """(keys, valid) host views of the table's pages in shard s's slab
+        (at most ``pages_per_shard``; the slab's other pages are padding)."""
+        lo = s * pages_per_shard
+        hi = max(min(lo + pages_per_shard, self.num_pages), lo)
+        return self.keys[lo:hi], self.valid[lo:hi]
+
+    def refresh_shard_slabs(self, shard_ids, num_shards: int,
+                            pages_per_shard: int) -> bool:
+        """Patch a stale slab view in place after shard-local mutations.
+
+        Contract (as the reference's): every mutation since the view went
+        stale is confined to the slabs in ``shard_ids``. Each touched slab's
+        pages are copied host-to-device once into the cached (S, PPS, C)
+        views (its padding pages zeroed) and the view's key takes the
+        table's page count. Returns True if the view was patched; False if
+        there is no compatible view, or the table outgrew the layout (the
+        next ``device_*_sharded`` call then rebuilds it whole).
+        """
+        if self._dev_shard is None:
+            return False
+        (cs, cpps, _, dev), keys_dev, valid_dev = self._dev_shard
+        if (cs, cpps) != (num_shards, pages_per_shard):
+            return False
+        if num_shards * pages_per_shard < self.num_pages:
+            return False                     # table outgrew the layout
+        for s in sorted(set(int(s) for s in shard_ids)):
+            hk, hv = self._host_slab(s, pages_per_shard)
+            n = hk.shape[0]
+            keys_dev[s, :n].copy_(torch.from_numpy(hk))
+            valid_dev[s, :n].copy_(torch.from_numpy(hv))
+            keys_dev[s, n:].zero_()
+            valid_dev[s, n:].zero_()
+        key = (num_shards, pages_per_shard, self.num_pages, dev)
+        self._dev_shard = (key, keys_dev, valid_dev)
+        self._dev_shard_stale = False
+        return True
 
     def device_keys_sharded(self, num_shards: int, pages_per_shard: int,
                             device=None) -> torch.Tensor:

@@ -14,7 +14,13 @@ search) and the build of one shard (``core.index.build`` on shard 1's view:
 the bucket probe, the page bits and the host grouping scan); then the
 maintenance of ``chip_smoke.py``'s phase 2c on the sharded index: one eager
 ``insert`` (after a warm-up insert), one ``insert_batch`` of ``--rows``/1000
-rows, and the ``vacuum`` after deleting one day. Prints, per window, the
+rows, and the ``vacuum`` after deleting one day; then the maintenance
+writer of phase 2d: one staged ``write`` (after 4,096 drifting ones), the
+compact batches after them with the staged rows in the overlay (with and
+without a drain before them), one drain unit of each kind (a shard's
+remap, the insert queue with its slab patch, a shard's vacuum after
+deleting another day), and one remap of one shard
+(``core.index.resummarize_shard`` alone). Prints, per window, the
 wall time, the device-busy share of that window (summed kernel time over
 wall time), the number of device-to-host copies (each one a host sync) and
 the operators by device time.
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.core import histogram as hg
 from repro_torch.core import index as hix
 from repro_torch.core.hippo import HippoIndex
 from repro_torch.core.histogram import Histogram
@@ -105,11 +112,64 @@ def main() -> None:
     table.delete_where(day, day)
     _profiled(f"vacuum after deleting day {day:g} ({table.num_dirty:,} "
               f"dirty pages)", sidx.vacuum)
+    _writer_windows(rng, sidx)
 
 
-def _profiled(name: str, fn) -> None:
+def _writer_windows(rng, sidx) -> None:
+    """Phase 2d's writer, in its order: a staged write (after 4,096
+    drifting ones, which schedule a remap of every shard), the first batch
+    after them (it drains shard 0's remap, then serves with the overlay),
+    the same batch through a reader that never drains, a remap unit and
+    the reader's batch after it, an insert-queue drain, a vacuum drain, and
+    one remap of one shard alone."""
+    eng = QueryEngine(sidx, batch=64, top_k=32)
+    reader = QueryEngine(sidx, batch=64, top_k=32, drain_policy="manual",
+                         writer=eng.writer)
+    writer = eng.writer
+    reader.run_all(_preds(rng, 64))         # warm-up, no rows staged
+    new = rng.integers(SHIPDATE_DAYS, SHIPDATE_DAYS + 90, 4096)
+    for v in new:
+        eng.write(float(v))
+    torch.cuda.synchronize()
+    _profiled("staged write", lambda: eng.write(2600.0), cpu=True)
+    preds = _preds(rng, 64)
+
+    def batch(e):
+        for p in preds:
+            e.submit(p)
+        e.run_batch()
+
+    _profiled(f"first batch after the writes (drains a remap, then "
+              f"{writer.staged_rows:,} staged rows in the overlay)",
+              lambda: batch(eng), cpu=True)
+    _profiled("the same batch through the reader (no drain)",
+              lambda: batch(reader), cpu=True)
+    _profiled("drain: remap of shard 1", lambda: writer.drain(1))
+    _profiled("the reader's batch after it", lambda: batch(reader),
+              cpu=True)
+    writer.drain(sidx.num_shards - 2)
+    reader.run_all(_preds(rng, 8))          # a fresh slab view to patch
+    torch.cuda.synchronize()
+    _profiled(f"drain: insert queue of {writer.queue_depth:,} rows",
+              lambda: writer.drain(1), cpu=True)
+    day = float(rng.integers(0, SHIPDATE_DAYS))
+    eng.delete(day, day)
+    _profiled(f"drain: vacuum of shard {writer.pending_vacuum_shards()[0]}",
+              lambda: writer.drain(1))
+    writer.flush()
+    keys, valid = sidx._slabs()
+    st = hix.shard_state(sidx.state.shards, 1)
+    bounds = hg.rebuild(sidx.shard_histogram(1), new.astype(np.float32)
+                        ).bounds
+    _profiled("remap of shard 1 (resummarize_shard)",
+              lambda: hix.resummarize_shard(sidx.cfg, st, keys[1], valid[1],
+                                            bounds))
+
+
+def _profiled(name: str, fn, cpu: bool = False) -> None:
     """Profile one call of ``fn`` (ending in a synchronize) and print its
-    wall time, device-busy share and top device operators."""
+    wall time, device-busy share and top device operators; with ``cpu``
+    also the top host operators by their own host time."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -125,6 +185,12 @@ def _profiled(name: str, fn) -> None:
     for e in rows[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} "
               f"calls  {e.key[:80]}")
+    if cpu:
+        host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                      reverse=True)
+        for e in host[:8]:
+            print(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms  "
+                  f"{e.count:5d} calls  {e.key[:70]}")
 
 
 if __name__ == "__main__":

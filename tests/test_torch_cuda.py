@@ -573,6 +573,77 @@ def test_dense_engines_on_card_equal_engines_on_cpu():
     assert out["cpu"][1][1][1] > 0          # the routed run pruned shards
 
 
+def _writer_stream(dev: str, policy: str) -> list:
+    """A writer-backed stream on ``dev``: drifting staged writes, compact
+    and routed batches (some mid-remap, with the overlay), a delete, the
+    drained vacuums; returns every result and counter."""
+    rng = np.random.default_rng(6)
+    vals = rng.integers(0, 2555, 30_000).astype(np.float32)
+    sidx = ShardedHippoIndex.create(PagedTable.from_values(vals, 50),
+                                    num_shards=4, device=dev)
+    eng = QueryEngine(sidx, batch=32, top_k=8, drain_policy=policy)
+    routed = QueryEngine(sidx, batch=32, mode="dense", drain_policy="manual",
+                         writer=eng.writer)
+    out = []
+    for r in range(6):
+        for v in rng.integers(2555, 2645, 300):
+            eng.write(float(v))
+        preds = [Predicate.between(float(lo), float(lo + w))
+                 for lo, w in zip(rng.integers(2300, 2645, 40), [0, 9, 99] * 14)]
+        for e in (eng, routed):
+            tickets = [e.submit(p) for p in preds]
+            e.drain()
+            out.append([(t.count, t.pages_inspected, t.entries_matched,
+                         None if t.row_ids is None else t.row_ids.tolist())
+                        for t in tickets])
+        if r == 3:
+            out.append(eng.delete(100.0, 110.0))
+    out.append(eng.flush())
+    st = eng.stats
+    out.append((st.drains, st.drained_rows, st.resummarizes, st.writes,
+                st.deletes, st.edge_overflow_ratio, st.peak_queue_depth,
+                sidx.bounds_epochs.tolist()))
+    out.append([f.cpu().numpy().tolist() for f in sidx.state.shards])
+    return out
+
+
+@needs_cuda
+@pytest.mark.parametrize("policy", ["between_batches", "on_depth", "manual"])
+def test_writer_engine_on_card_equals_cpu(policy):
+    assert _writer_stream("cuda", policy) == _writer_stream("cpu", policy)
+
+
+@needs_cuda
+def test_learned_index_on_card_equals_cpu():
+    rng = np.random.default_rng(8)
+    vals = rng.integers(1, 51, 40_000).astype(np.float32)
+    preds = [Predicate.between(float(lo), float(lo + w))
+             for lo, w in zip(rng.integers(1, 27, 60), [0, 4, 23] * 20)]
+    writes = rng.integers(1, 51, 500)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sidx = ShardedHippoIndex.create(PagedTable.from_values(vals, 50),
+                                        num_shards=4, summary="learned",
+                                        device=dev)
+        runs = [sidx.state.shards.bounds.cpu().numpy().tolist(),
+                sidx.summary_models[0].knots_x.tolist()]
+        eng = QueryEngine(sidx, batch=32, top_k=8)
+        for mode_eng in (eng, QueryEngine(sidx, batch=32, mode="dense",
+                                          drain_policy="manual",
+                                          writer=eng.writer)):
+            tickets = [mode_eng.submit(p) for p in preds]
+            mode_eng.drain()
+            runs.append([(t.count, t.pages_inspected) for t in tickets])
+        for v in writes:
+            eng.write(float(v))
+        runs.append(eng.resummarize())
+        runs.append(eng.stats.learned_refits)
+        runs.append(sidx.state.shards.bounds.cpu().numpy().tolist())
+        runs.append(eng.run_all(preds).tolist())
+        out[dev] = runs
+    assert out["cuda"] == out["cpu"]
+
+
 @needs_cuda
 def test_cuda_tensor_raises_when_the_library_fails(monkeypatch):
     def broken():

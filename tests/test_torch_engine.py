@@ -19,6 +19,7 @@ from repro_torch.core.partition import ShardedHippoIndex as TSharded
 from repro_torch.core.predicate import Predicate as TPred
 from repro_torch.runtime.engine import EngineStats as TStats
 from repro_torch.runtime.engine import QueryEngine as TEngine
+from repro_torch.runtime.writer import MaintenanceWriter as TWriter
 from repro_torch.storage.table import PagedTable as TTable
 
 COUNTERS = ("submitted", "served", "batches", "slots_filled", "pad_slots",
@@ -98,14 +99,34 @@ def test_constructor_refusals_match_reference(pair, kwargs):
 
 
 def test_unported_surfaces_refuse_loudly(pair, tmp_path):
+    # durable storage (ROADMAP.md item 13) is refused: an engine's
+    # storage_dir and a writer's journal; the writer and learned summaries,
+    # refused before they were ported, now equal the reference
     _, t = pair
-    for kwargs in ({"storage_dir": tmp_path}, {"writer": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TEngine(t, **kwargs)
-    eng = TEngine(t)
-    for call in (lambda: eng.write(1.0), lambda: eng.delete(0.0, 1.0),
-                 eng.flush, eng.resummarize):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSharded.create(t.table, summary="learned", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 13"):
+        TEngine(t, storage_dir=tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 13"):
+        TWriter(t, journal=object())
+    values = np.random.default_rng(22).integers(0, 2555, 3000).astype(
+        np.float32)
+    j = JSharded.create(JTable.from_values(values, 8, spare_pages=64),
+                        num_shards=2, resolution=64, summary="learned")
+    t = TSharded.create(TTable.from_values(values, 8, spare_pages=64),
+                        num_shards=2, resolution=64, summary="learned",
+                        device="cpu")
+    assert np.array_equal(np.asarray(j.state.shards.bounds),
+                          t.state.shards.bounds.numpy())
+    je, te = JEngine(j, batch=8), TEngine(t, batch=8)
+    for v in np.linspace(2000.0, 2700.0, 40, dtype=np.float32):
+        je.write(float(v))
+        te.write(float(v))
+    assert je.delete(100.0, 140.0) == te.delete(100.0, 140.0)
+    assert je.resummarize() == te.resummarize() == 2
+    assert je.flush() == te.flush()
+    jp, tp = _stream(23, 20)
+    assert np.array_equal(je.run_all(jp), te.run_all(tp))
+    for c in COUNTERS + ("writes", "deletes", "drains", "drained_rows",
+                         "resummarizes", "learned_refits", "queue_depth"):
+        assert getattr(je.stats, c) == getattr(te.stats, c), c
+    assert np.array_equal(np.asarray(j.state.shards.bitmaps).view(np.int32),
+                          t.state.shards.bitmaps.numpy())

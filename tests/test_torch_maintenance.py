@@ -459,15 +459,27 @@ def test_sync_engine_write_delete_equals_reference(shards):
 @pytest.mark.parametrize("policy", [None, "between_batches", "on_depth",
                                     "manual"])
 def test_writer_backed_policies_refuse(policy):
-    # the reference gives these a MaintenanceWriter; the port refuses
-    # loudly (ROADMAP.md item 10) and never acts as sync
-    _, t = _pair(_days(21, 600), 2, 16)
-    eng = TEngine(t, drain_policy=policy)
-    assert eng.drain_policy == (policy or "between_batches")
-    snap = t.table.cardinality
-    for call in (lambda: eng.write(1.0), lambda: eng.delete(0.0, 100.0),
-                 eng.flush, eng.resummarize):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
-    assert t.table.cardinality == snap and t.table.num_dirty == 0
-    assert (eng.stats.writes, eng.stats.deletes) == (0, 0)
+    # the reference gives these a MaintenanceWriter, and so does the port:
+    # the same writes, delete, flush and resummarize leave the same state,
+    # table, counters and answers (the writer's own parity is
+    # tests/test_torch_writer.py)
+    j, t = _pair(_days(21, 600), 2, 16)
+    je = JEngine(j, drain_policy=policy, drain_depth=8)
+    te = TEngine(t, drain_policy=policy, drain_depth=8)
+    assert te.drain_policy == je.drain_policy == (policy or "between_batches")
+    assert te.writer is not None and t.staging is te.writer
+    for v in _days(22, 12):
+        je.write(float(v))
+        te.write(float(v))
+    assert je.delete(0.0, 100.0) == te.delete(0.0, 100.0) > 0
+    jp, tp = _preds(23)
+    assert list(je.run_all(jp)) == list(te.run_all(tp))
+    assert je.flush() == te.flush()
+    assert je.resummarize(np.linspace(-1.0, 2600.0, 17)) == \
+        te.resummarize(np.linspace(-1.0, 2600.0, 17)) == 2
+    for f in ("writes", "deletes", "drains", "drained_rows", "resummarizes",
+              "queue_depth", "staged_rows"):
+        assert getattr(je.stats, f) == getattr(te.stats, f), f
+    assert te.stats.writes == 12 and te.writer.pending_units == 0
+    _assert_index_equal(j, t)
+    _assert_queries_equal(j, t, seed=24)

@@ -1,0 +1,433 @@
+"""Port parity: the maintenance writer (``repro_torch.runtime.writer``) and
+the writer-backed ``QueryEngine``.
+
+One seeded stream of writes (in range and drifting past it), deletes,
+batches and flushes goes through the JAX package (on the CPU) and the port
+(``device="cpu"``) under each async drain policy. After every operation the
+tickets (counts and row ids), ``EngineStats`` and ``WriterStats`` (wall
+times aside), every state field, the bounds epochs, the table and the
+writer's queues must be equal. Then the refusals, each with the same
+message and the same rollback, the slab view patched in place, and a crash
+injected before a drain's swap.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import index as jix
+from repro.core.partition import ShardedHippoIndex as JSharded
+from repro.core.predicate import Predicate as JPred
+from repro.runtime import faultinject as jfi
+from repro.runtime.engine import QueryEngine as JEngine
+from repro.runtime.writer import MaintenanceWriter as JWriter
+from repro.storage.table import PagedTable as JTable
+from repro_torch.core.hippo import HippoIndex as THippo
+from repro_torch.core.partition import ShardedHippoIndex as TSharded
+from repro_torch.core.predicate import Predicate as TPred
+from repro_torch.runtime import faultinject as tfi
+from repro_torch.runtime.engine import QueryEngine as TEngine
+from repro_torch.runtime.writer import MaintenanceWriter as TWriter
+from repro_torch.runtime.writer import WriterStats
+from repro_torch.storage.table import PagedTable as TTable
+
+TIMES = {"drain_us", "last_drain_us", "total_drain_us"}   # wall clock
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _assert_equal(ref, got, what):
+    a, b = np.asarray(ref), _host(got)
+    if a.dtype == np.uint32:
+        b = b.view(np.uint32)
+    assert a.shape == b.shape and a.dtype == b.dtype, (what, a.shape, b.shape)
+    assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), what
+
+
+def _assert_index_equal(j, t):
+    for f in jix.HippoState._fields:
+        _assert_equal(getattr(j.state.shards, f), getattr(t.state.shards, f), f)
+    _assert_equal(j.state.summaries, t.state.summaries, "summaries")
+    _assert_equal(j.bounds_epochs, t.bounds_epochs, "bounds_epochs")
+    for f in ("keys", "valid", "dirty"):
+        _assert_equal(getattr(j.table, f), getattr(t.table, f), f"table.{f}")
+    for f in ("num_pages", "fill", "num_dirty", "capacity_pages"):
+        assert getattr(j.table, f) == getattr(t.table, f), f
+    assert dataclasses.asdict(j.counters) == dataclasses.asdict(t.counters)
+    assert j.swap_in_flight is None and t.swap_in_flight is None
+
+
+def _stats(stats) -> dict:
+    return {k: v for k, v in dataclasses.asdict(stats).items()
+            if k not in TIMES}
+
+
+def _assert_writer_equal(jw, tw):
+    assert _stats(jw.stats) == _stats(tw.stats)
+    assert (jw.queue_depth, jw.staged_rows, jw.pending_units) == \
+        (tw.queue_depth, tw.staged_rows, tw.pending_units)
+    assert jw.queue_depths() == tw.queue_depths()
+    assert jw.pending_shards() == tw.pending_shards()
+    assert jw.pending_vacuum_shards() == tw.pending_vacuum_shards()
+    assert jw.pending_resummarize_shards() == tw.pending_resummarize_shards()
+    assert jw.dirty_checkpoint_shards() == tw.dirty_checkpoint_shards()
+    for s, q in jw._queues.items():
+        assert q.values == tw._queues[s].values and q.live == tw._queues[s].live
+    _assert_equal(jw.drift.hits, tw.drift.hits, "hits")
+    _assert_equal(jw.drift.sample(), tw.drift.sample(), "reservoir")
+    assert (jw.drift.observed, jw.drift.out_of_range) == \
+        (tw.drift.observed, tw.drift.out_of_range)
+
+
+def _assert_engines_equal(je, te):
+    assert _stats(je.stats) == _stats(te.stats)
+    assert je._compact_bucket == te._compact_bucket
+    assert je._auto_drain_suspended == te._auto_drain_suspended
+    _assert_writer_equal(je.writer, te.writer)
+    _assert_index_equal(je.index, te.index)
+
+
+def _pair(values, shards=4, h=32, page_card=8, spare_pages=256, **kw):
+    jt = JTable.from_values(np.asarray(values, np.float32), page_card,
+                            spare_pages=spare_pages)
+    tt = TTable.from_values(np.asarray(values, np.float32), page_card,
+                            spare_pages=spare_pages)
+    return (JSharded.create(jt, num_shards=shards, resolution=h,
+                            density=0.25, **kw),
+            TSharded.create(tt, num_shards=shards, resolution=h,
+                            density=0.25, device="cpu", **kw))
+
+
+def _preds(rng, n):
+    spans = [(float(lo), float(lo + w)) for lo, w in
+             zip(rng.uniform(0, 130, n), rng.choice([0.0, 3.0, 30.0], n))]
+    spans += [(5.0, 1.0), (-np.inf, np.inf), (104.0, 118.0)]
+    return [JPred.between(*s) for s in spans], [TPred.between(*s) for s in spans]
+
+
+def _brute(table, lo, hi) -> int:
+    live = table.valid[: table.num_pages]
+    keys = table.keys[: table.num_pages]
+    return int((live & (keys >= lo) & (keys <= hi)).sum())
+
+
+def _run_equal(je, te, jp, tp, brute=True):
+    """Both engines serve the same predicates: tickets equal, counts equal
+    brute force over the table plus the live staged rows."""
+    jt = [je.submit(p) for p in jp]
+    tt = [te.submit(p) for p in tp]
+    je.drain()
+    te.drain()
+    for a, b in zip(jt, tt):
+        assert (a.count, a.pages_inspected, a.entries_matched) == \
+            (b.count, b.pages_inspected, b.entries_matched), a.pred
+        if a.row_ids is not None:
+            assert np.array_equal(a.row_ids, b.row_ids), a.pred
+    if brute:
+        w = te.index.staging
+        staged = (w.staged_counts([p.lo for p in tp], [p.hi for p in tp])
+                  .sum(axis=1) if w is not None else 0)
+        want = np.asarray([_brute(te.index.table, p.lo, p.hi) for p in tp])
+        assert np.array_equal([b.count for b in tt], want + staged)
+    return [b.count for b in tt]
+
+
+# ---------------------------------------------------------------------------
+# The interleaved stream, under every async policy
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("policy", [None, "between_batches", "on_depth",
+                                    "manual"])
+def test_interleaved_stream_equals_reference(policy):
+    rng = np.random.default_rng(7)
+    j, t = _pair(np.sort(rng.uniform(0, 100, 600)))
+    kw = dict(batch=8, drain_policy=policy, drain_depth=24,
+              drift_min_observed=16, top_k=6)
+    je, te = JEngine(j, **kw), TEngine(t, **kw)
+    assert te.drain_policy == (policy or "between_batches")
+    assert te.drain_units == 1 and isinstance(te.writer, TWriter)
+    # a routed dense engine on the same writer: the overlay of its path
+    jr = JEngine(j, batch=8, mode="dense", drain_policy="manual",
+                 writer=je.writer)
+    tr = TEngine(t, batch=8, mode="dense", drain_policy="manual",
+                 writer=te.writer)
+    ops = rng.permutation(["write"] * 40 + ["drift"] * 30 + ["delete"] * 5
+                          + ["batch"] * 12 + ["flush"] * 2)
+    for step, op in enumerate(ops):
+        if op == "write":
+            v = float(rng.uniform(0, 100))
+            je.write(v)
+            te.write(v)
+        elif op == "drift":
+            v = float(rng.uniform(100, 130))
+            je.write(v)
+            te.write(v)
+        elif op == "delete":
+            lo = float(rng.uniform(0, 125))
+            assert je.delete(lo, lo + 2.0) == te.delete(lo, lo + 2.0)
+        elif op == "flush":
+            assert je.flush() == te.flush()
+        else:
+            jp, tp = _preds(rng, 5)
+            _run_equal(je, te, jp, tp)
+            _run_equal(jr, tr, jp, tp)
+        _assert_engines_equal(je, te)
+    assert te.stats.resummarizes > 0 and te.stats.drains > 0, step
+    assert je.flush() == te.flush()
+    _assert_engines_equal(je, te)
+    jp, tp = _preds(rng, 9)
+    _run_equal(je, te, jp, tp)
+    _run_equal(jr, tr, jp, tp)
+    assert te.writer.queue_depth == 0 and te.writer.pending_units == 0
+
+
+def test_dead_staged_rows_keep_their_slots_and_routing():
+    # rows killed by a delete still take their page and slot, so a later
+    # queue (in the next shard) lands where stage-time routing put it
+    rng = np.random.default_rng(3)
+    j, t = _pair(rng.uniform(0, 100, 150), shards=3, pages_per_shard=10,
+                 spare_pages=64)
+    jw, tw = JWriter(j), TWriter(t)
+    for v in rng.uniform(0, 100, 60):
+        assert jw.write(float(v)) == tw.write(float(v))
+    assert tw.pending_shards() == [1, 2]
+    assert jw.delete(20.0, 60.0) == tw.delete(20.0, 60.0)
+    assert tw.stats.killed > 0
+    _assert_writer_equal(jw, tw)
+    assert jw.drain(1) == tw.drain(1)
+    _assert_index_equal(j, t)
+    assert jw.flush() == tw.flush()
+    _assert_index_equal(j, t)
+    _assert_writer_equal(jw, tw)
+
+
+# ---------------------------------------------------------------------------
+# The slab view
+# ---------------------------------------------------------------------------
+
+def test_slab_view_patched_in_place():
+    rng = np.random.default_rng(31)
+    j, t = _pair(rng.uniform(0, 100, 200))
+    je = JEngine(j, batch=4, drain_policy="manual")
+    te = TEngine(t, batch=4, drain_policy="manual")
+    jp, tp = _preds(rng, 3)
+    _run_equal(je, te, jp, tp)                 # builds the slab views
+    table = t.table
+    assert table._dev_shard is not None and not table._dev_shard_stale
+    views = table._dev_shard[1:]
+    for v in rng.uniform(0, 100, 10):
+        je.write(float(v))
+        te.write(float(v))
+    assert je.flush() == te.flush() == 10
+    assert not table._dev_shard_stale          # patched, not invalidated
+    assert table._dev_shard[0][2] == table.num_pages
+    assert all(a is b for a, b in zip(table._dev_shard[1:], views))
+    keys, valid = t._slabs()
+    jk, jv = j._slabs()
+    _assert_equal(jk, keys, "patched keys")
+    _assert_equal(jv, valid, "patched valid")
+    # a delete patches every dirty shard's slab the same way
+    assert je.delete(10.0, 80.0) == te.delete(10.0, 80.0) > 0
+    assert not table._dev_shard_stale
+    _assert_equal(j._slabs()[1], t._slabs()[1], "valid after delete")
+    _run_equal(je, te, jp, tp)
+    assert je.flush() == te.flush() == 0       # the vacuums
+    # with no fresh view, a drain leaves the rebuild to the next read
+    table._dev_shard = None
+    for e in (je, te):
+        e.write(50.0)
+        e.flush()
+    assert table._dev_shard is None
+    assert not table.refresh_shard_slabs([0], 4, t.spec.pages_per_shard)
+    _run_equal(je, te, jp, tp)
+    assert not table.refresh_shard_slabs([0], 2, t.spec.pages_per_shard)
+
+
+# ---------------------------------------------------------------------------
+# Refusals: same message, same rollback
+# ---------------------------------------------------------------------------
+
+def _raise_alike(jcall, tcall, exc=RuntimeError, match=None):
+    with pytest.raises(exc, match=match) as je:
+        jcall()
+    with pytest.raises(exc, match=match) as te:
+        tcall()
+    assert str(je.value) == str(te.value)
+
+
+def test_layout_full_refusal_equals_reference():
+    rng = np.random.default_rng(37)
+    j, t = _pair(rng.uniform(0, 100, 64), shards=2, pages_per_shard=5,
+                 spare_pages=64)
+    je = JEngine(j, batch=4, drain_policy="manual")
+    te = TEngine(t, batch=4, drain_policy="manual")
+
+    def fill(e):
+        for v in np.linspace(0, 90, 100):
+            e.write(float(v))
+
+    _raise_alike(lambda: fill(je), lambda: fill(te), match="layout full")
+    _assert_engines_equal(je, te)
+    _run_equal(je, te, *_preds(rng, 4))
+    assert je.flush() == te.flush()
+    _assert_engines_equal(je, te)
+    _run_equal(je, te, *_preds(rng, 4))
+
+
+@pytest.mark.parametrize("policy", ["manual", "between_batches"])
+def test_slot_capacity_refusal_rolls_back_like_reference(policy):
+    j, t = _pair(np.linspace(0, 99, 64), shards=2, max_slots=12)
+    je = JEngine(j, batch=4, drain_policy=policy, auto_resummarize=False)
+    te = TEngine(t, batch=4, drain_policy=policy, auto_resummarize=False)
+    for v in np.linspace(0, 99, 300):
+        je.write(float(v))
+        te.write(float(v))
+    # two valid remaps drain before the insert queue refuses
+    bounds = np.linspace(-1.0, 101.0, 33)
+    je.writer.schedule_resummarize(bounds)
+    te.writer.schedule_resummarize(bounds)
+    jp, tp = _preds(np.random.default_rng(5), 3)
+    if policy == "manual":
+        _raise_alike(je.flush, te.flush, match="slot capacity")
+    else:
+        _run_equal(je, te, jp, tp)      # two batches: one remap unit each
+        _raise_alike(lambda: je.run_all(jp), lambda: te.run_all(tp),
+                     match="slot capacity")
+        assert te._auto_drain_suspended
+        for e in (je, te):
+            e.queue.clear()
+            e.slots = [None] * e.batch
+    assert te.writer.stats.drains == 2 and te.writer.stats.resummarizes == 2
+    _assert_engines_equal(je, te)
+    _run_equal(je, te, jp, tp)                  # exact through the overlay
+    assert je.writer.discard() == te.writer.discard() == 300
+    _run_equal(je, te, jp, tp)
+    _assert_engines_equal(je, te)
+    je.write(50.0)
+    te.write(50.0)
+    assert je.flush() == te.flush() == 1
+    _assert_engines_equal(je, te)
+
+
+def test_mid_swap_guard_refuses_every_surface():
+    rng = np.random.default_rng(41)
+    j, t = _pair(rng.uniform(0, 100, 200))
+    te = TEngine(t, batch=4)
+    je = JEngine(j, batch=4)
+    jp, tp = JPred.between(0, 50), TPred.between(0, 50)
+    j.swap_in_flight = t.swap_in_flight = 2
+
+    def surfaces(idx, e, w, p):
+        return (lambda: idx.search_batch([p]), lambda: idx.plan_batch([p]),
+                lambda: idx.search_batch_shard(0, [p]),
+                lambda: idx.search_compact_batch([p], max_selected=4),
+                lambda: idx.insert(1.0),
+                lambda: idx.insert_batch(np.asarray([1.0])),
+                idx.vacuum, lambda: idx.vacuum_shard(0),
+                lambda: e.run_all([p]), lambda: e.write(1.0),
+                lambda: e.delete(0.0, 1.0),
+                lambda: w.schedule_resummarize(np.linspace(0, 1, 33)))
+
+    for a, b in zip(surfaces(j, je, je.writer, jp),
+                    surfaces(t, te, te.writer, tp)):
+        _raise_alike(a, b, match="swap in flight")
+    j.swap_in_flight = t.swap_in_flight = None
+    for e in (je, te):
+        e.queue.clear()
+        e.slots = [None] * e.batch
+    assert _run_equal(je, te, [jp], [tp]) == [_brute(t.table, 0, 50)]
+
+
+def test_direct_insert_refused_while_rows_staged():
+    rng = np.random.default_rng(43)
+    j, t = _pair(rng.uniform(0, 100, 100))
+    jw, tw = JWriter(j), TWriter(t)
+    jw.write(5.0)
+    tw.write(5.0)
+    _raise_alike(lambda: j.insert(1.0), lambda: t.insert(1.0),
+                 match="staged rows pending")
+    _raise_alike(lambda: j.insert_batch(np.asarray([1.0, 2.0])),
+                 lambda: t.insert_batch(np.asarray([1.0, 2.0])),
+                 match="staged rows pending")
+    assert jw.flush() == tw.flush() == 1
+    j.insert(1.0)
+    t.insert(1.0)
+    _assert_index_equal(j, t)
+
+
+def test_second_detached_and_foreign_writers_refuse():
+    rng = np.random.default_rng(47)
+    j, t = _pair(rng.uniform(0, 100, 100))
+    jw, tw = JWriter(j), TWriter(t)
+    jw.write(5.0)
+    tw.write(5.0)
+    _raise_alike(lambda: JWriter(j), lambda: TWriter(t),
+                 match="already has a writer")
+    jw.flush()
+    tw.flush()
+    jw2, tw2 = JWriter(j), TWriter(t)           # queue empty: allowed
+    assert t.staging is tw2
+    _raise_alike(lambda: jw.write(1.0), lambda: tw.write(1.0),
+                 match="detached")
+    _raise_alike(lambda: jw.delete(0.0, 1.0), lambda: tw.delete(0.0, 1.0),
+                 match="detached")
+    j2, t2 = _pair(rng.uniform(0, 100, 100))
+    _raise_alike(lambda: JEngine(j2, batch=4, writer=jw2),
+                 lambda: TEngine(t2, batch=4, writer=tw2), exc=ValueError,
+                 match="different index")
+    hidx = THippo.create(TTable.from_values(np.linspace(0, 9, 80), 8),
+                         resolution=32, device="cpu")
+    with pytest.raises(ValueError, match="ShardedHippoIndex"):
+        TWriter(hidx)
+    with pytest.raises(ValueError, match="sync"):
+        TEngine(hidx, drain_policy="between_batches")
+    assert TEngine(hidx).writer is None
+
+
+def test_journal_is_refused_until_durable_storage():
+    _, t = _pair(np.linspace(0, 99, 64))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        TWriter(t, journal=object())
+    assert t.staging is None
+
+
+# ---------------------------------------------------------------------------
+# A crash injected before the drain's swap
+# ---------------------------------------------------------------------------
+
+def test_crash_before_swap_leaves_rows_staged_and_counted():
+    rng = np.random.default_rng(53)
+    j, t = _pair(np.sort(rng.uniform(0, 100, 300)))
+    je = JEngine(j, batch=4, drain_policy="manual")
+    te = TEngine(t, batch=4, drain_policy="manual")
+    for v in rng.uniform(0, 120, 40):
+        je.write(float(v))
+        te.write(float(v))
+    jp, tp = _preds(rng, 4)
+    before = _run_equal(je, te, jp, tp)
+    snap = [f.clone() for f in t.state.shards]
+    for fi, e in ((jfi, je), (tfi, te)):
+        fi.crash_points.reset()
+        fi.crash_points.arm("drain.pre_swap")
+        try:
+            with pytest.raises(fi.InjectedCrash, match="drain.pre_swap"):
+                e.flush()
+            assert fi.crash_points.fired("drain.pre_swap") == 1
+        finally:
+            fi.crash_points.reset()
+    assert all(torch.equal(a, b) for a, b in zip(snap, t.state.shards))
+    assert te.writer.queue_depth == 40
+    _assert_engines_equal(je, te)
+    assert _run_equal(je, te, jp, tp) == before
+    assert je.flush() == te.flush() == 40
+    _assert_engines_equal(je, te)
+    assert _run_equal(je, te, jp, tp) == before
+
+
+def test_writer_stats_fields_equal_reference():
+    from repro.runtime.writer import WriterStats as JStats
+    assert list(WriterStats.__dataclass_fields__) == \
+        list(JStats.__dataclass_fields__)
