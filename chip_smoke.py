@@ -73,6 +73,29 @@ each of which exits nonzero on failure:
    times, the model's segments and error, the buckets the build sample
    occupies under the learned and the equal-mass bounds, and q/s. The index
    is freed when the phase ends.
+   2f. Durability on phase 2's index as 2c and 2d left it, with the counters
+   set to 0 just before and read just after, in a fresh temporary
+   directory (its filesystem and free bytes are printed; it is removed at
+   the end): ``QueryEngine(batch=64, top_k=32, storage_dir=D)`` makes the
+   initial full save (collect and write timed apart; ``disk_usage``'s
+   table and index bytes, and the index bytes per live tuple); 4 rounds of
+   1,024 journaled writes (one fsync a record; the ack latency) and one
+   compact batch, whose drain commits a delta; a one-day ``delete`` and
+   batches that drain its vacuums (and stage writes when nothing is
+   pending) until the chain folds into a new full base; then a crash
+   injected at ``drain.pre_swap`` and one at ``truncate.pre`` after a
+   commit, each followed by dropping the engine, freeing its memory and
+   ``QueryEngine.recover(D)`` (read with the CRC, decode with the upload,
+   the journal replay and the new base timed apart), with the table, the
+   staged rows and 256 counts equal to the acknowledged state; a
+   writer-less ``ShardedHippoIndex.load(D)`` after a flush, exact against
+   brute force; and every registered crash site through
+   ``resilient_serve`` on an index of ``--rows``/100 rows
+   (``background_save`` for ``persist.in_flight``), each firing and
+   recovering the counts of the base rows plus every acknowledged write. A
+   ``durable`` JSON line carries the times, bytes and the peak device
+   memory; the filter, the inspection and the bucket probe must have
+   launched. Phase 3 then runs on the recovered index.
 3. Each kernel against its plain PyTorch version on the card, exactly, at
    the main paths' shapes and at ragged edges; then the kernel, the plain
    version and (where one exists) the one PyTorch call that computes the
@@ -86,9 +109,9 @@ each of which exits nonzero on failure:
    time at shard 1's view of the build (a base 8 mod 16), at a predicate
    conversion's 128 values and at each input phase 2c gave it (held there
    with ``nan_last`` set and clear, at the input's own offset within 16
-   bytes). Phase 3 runs after phases 2c and 2d, so the filter, the
-   inspection and the bucket probe are held and timed on the mutated and
-   remapped index.
+   bytes). Phase 3 runs after phases 2c-2f, so the filter, the inspection
+   and the bucket probe are held and timed on the mutated, remapped and
+   recovered index.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -137,6 +160,22 @@ DRIFT_MIN_OBSERVED = 256         # the engine's default drift trigger
 LEARNED_WRITES = 4096            # phase 2e's staged writes before the refit
 QUANTITY_WIDTHS = (0, 4, 23)     # phase 2e: one value, 5 values, Q6's range
 TPCH_SF = 0.01                   # selectivity of the TPC-H windows
+DURABLE_WRITES = 4096            # phase 2f's journaled writes, wal_sync on
+DURABLE_ROUNDS = 4               # ... in rounds of writes then one batch
+CRASH_WRITES = 512               # staged before each injected crash
+SWEEP_ROWS_DIVISOR = 100         # the site sweep's depth: SF10 / 100
+SWEEP_WRITES = 36                # acknowledged writes per swept site
+# Crash site -> the durable engine whose commit path runs it (the sweep of
+# the reference's tests/test_fault_recovery.py)
+SITE_CONFIG = {
+    "wal.pre_append": {},
+    "drain.pre_swap": {},
+    "delta.pre_commit": {},
+    "snapshot.pre_commit": {"snapshot_mode": "full"},
+    "compact.pre_commit": {"compact_every": 2},
+    "truncate.pre": {},
+    "persist.in_flight": {"background_save": True},
+}
 # Kernels of the main path (phase 2) and those ported for the dense and
 # single-query paths (phase 2b); each kernel's launches are read from the run
 # of its path.
@@ -302,6 +341,14 @@ def main() -> int:
     learned_phase(torch, args, K, intervals, Predicate, QueryEngine,
                   PagedTable, ShardedHippoIndex, dense["li"])
     del dense["li"]
+
+    # -- 2f. durability on the mutated sharded index ---------------------------
+    # the phase drops the index (a crash) and hands back the recovered one
+    held = {"sidx": sidx}
+    del sidx, table
+    sidx = durable_phase(torch, args, K, intervals, Predicate, QueryEngine,
+                         ShardedHippoIndex, PagedTable, held)
+    table = sidx.table
 
     # -- 3. kernels against their plain versions, then timed -----------------
     shards = sidx.state.shards
@@ -958,6 +1005,338 @@ def writer_phase(torch, args, K, intervals, Predicate, QueryEngine,
     print(f"writer checked: {2 * (rounds + 1 + vacuum_units + 1)} batches "
           f"of {BATCH} counts and row-id lists equal brute force (table "
           f"plus staged rows)")
+
+
+class StepTimes:
+    """Wall times of named module functions, recorded by wrapping them in
+    place (so callers that look them up at call time are timed) until
+    ``restore``."""
+
+    def __init__(self, torch, module, names):
+        self.torch, self.module = torch, module
+        self.orig = {n: getattr(module, n) for n in names}
+        self.times = {n: [] for n in names}
+        for n, fn in self.orig.items():
+            setattr(module, n, self._wrap(n, fn))
+
+    def _wrap(self, name, fn):
+        def timed(*a, **k):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.torch.cuda.synchronize()
+                self.times[name].append(time.perf_counter() - t)
+        return timed
+
+    def take(self) -> dict:
+        """The times recorded since the last take, and clear them."""
+        out = {n: list(v) for n, v in self.times.items() if v}
+        for v in self.times.values():
+            v.clear()
+        return out
+
+    def restore(self) -> None:
+        for n, fn in self.orig.items():
+            setattr(self.module, n, fn)
+
+
+def expected_counts(torch, eng, intervals, preds) -> np.ndarray:
+    """Counts of ``preds`` by brute force over the engine's table on its
+    device plus its writer's live staged rows: the acknowledged state."""
+    table, dev = eng.index.table, eng.index.device
+    keys = table.device_keys(device=dev).reshape(-1)
+    valid = table.device_valid(device=dev).reshape(-1)
+    los, his = intervals(preds, dev)
+    w = eng.writer
+    staged = np.concatenate([np.asarray(q.values, np.float32)[
+        np.asarray(q.live, bool)] for q in w._queues.values()] or
+        [np.zeros(0, np.float32)])
+    return np.asarray([
+        int((valid & (keys >= los[q]) & (keys <= his[q])).sum())
+        + int(((staged >= p.lo) & (staged <= p.hi)).sum())
+        for q, p in enumerate(preds)], np.int64)
+
+
+def durable_phase(torch, args, K, intervals, Predicate, QueryEngine,
+                  ShardedHippoIndex, PagedTable, held: dict):
+    """Phase 2f: durability on phase 2's mutated SF10 index in a fresh
+    temporary directory: the initial full save, journaled writes with a
+    delta at each drain, a delete and its vacuums up to a compaction fold,
+    a crash at ``drain.pre_swap`` and one at ``truncate.pre`` each
+    recovered exactly, a writer-less load, then every crash site through
+    ``resilient_serve`` at a smaller depth. Takes the index out of
+    ``held`` (so the crashed engine's memory can be freed) and returns
+    the recovered index."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.checkpointing import snapshot as snap
+    from repro_torch.runtime import faultinject as fi
+    from repro_torch.runtime.fault import resilient_serve
+
+    rng = np.random.default_rng(args.seed + 5)
+    root = Path(tempfile.mkdtemp(prefix="hippo-durable-"))
+    fs = subprocess.run(["stat", "-f", "-c", "%T", str(root)],
+                        capture_output=True, text=True, timeout=60)
+    disk = shutil.disk_usage(root)
+    print(f"durable: directory {root} on {fs.stdout.strip() or 'unknown'} "
+          f"filesystem, {disk.free:,} bytes free")
+    steps = StepTimes(torch, snap, (
+        "collect_full_sections", "write_full_snapshot",
+        "collect_delta_sections", "write_delta_snapshot", "_load_chain",
+        "_build_index", "_replay_journal"))
+    out = {"filesystem": fs.stdout.strip(), "free_bytes": disk.free}
+    kw = dict(batch=BATCH, top_k=TOP_K)
+    try:
+        sidx = held.pop("sidx")
+        dev = sidx.device
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        # 1. the initial full save
+        t = time.perf_counter()
+        eng = QueryEngine(sidx, storage_dir=root, **kw)
+        out["initial_save_s"] = time.perf_counter() - t
+        out["initial_save_steps_s"] = steps.take()
+        base = root / "snap_1"
+        use = snap.disk_usage(base)
+        tuples = sidx.table.cardinality
+        out["full"] = {**use, "live_tuples": tuples,
+                       "index_bytes_per_tuple": use["index"] / tuples,
+                       "entries": sidx.num_entries}
+        # 2. journaled writes (one fsync a record), a delta at each drain
+        ack, deltas = [], []
+        days = (0, SHIPDATE_DAYS + NEW_DAYS)
+        for r in range(DURABLE_ROUNDS):
+            for v in rng.integers(*days, DURABLE_WRITES // DURABLE_ROUNDS):
+                t = time.perf_counter()
+                eng.write(float(v))
+                ack.append(time.perf_counter() - t)
+            preds = writer_preds(Predicate, rng, BATCH)
+            want = expected_counts(torch, eng, intervals, preds)
+            persists = eng.stats.persists
+            t = time.perf_counter()
+            got = eng.run_all(preds)
+            torch.cuda.synchronize()
+            batch_s = time.perf_counter() - t
+            if eng.stats.persists != persists + 1 or eng._delta_seq < 1:
+                fail(f"durable round {r}: the batch's drain committed no "
+                     f"delta")
+            if not np.array_equal(got, want):
+                fail(f"durable round {r}: counts differ from brute force")
+            d = root / f"delta_{eng._base_epoch}_{eng._delta_seq}"
+            deltas.append({"batch_s": batch_s, **steps.take(),
+                           **snap.disk_usage(d)})
+        out["ack_us_median"] = 1e6 * float(np.median(ack))
+        out["ack_us_mean"] = 1e6 * float(np.mean(ack))
+        out["ack_us_max"] = 1e6 * max(ack)
+        out["deltas"] = deltas
+        # 3. a one-day delete (journaled), its vacuum drains, more rounds
+        #    of writes and one batch until the chain folds into a new base
+        day = float(rng.integers(0, SHIPDATE_DAYS))
+        out["deleted_rows"] = eng.delete(day, day)
+        commits = []
+        epoch0 = eng._base_epoch
+        while eng._base_epoch == epoch0:
+            if len(commits) > 2 * eng.compact_every:
+                fail("no compaction fold after compact_every commits")
+            if not eng.writer.pending_units:
+                for v in rng.integers(*days, 64):
+                    eng.write(float(v))
+            preds = writer_preds(Predicate, rng, BATCH)
+            want = expected_counts(torch, eng, intervals, preds)
+            kind = ("vacuum" if eng.writer.pending_vacuum_shards()
+                    else "insert")
+            chain = eng._delta_seq
+            got = eng.run_all(preds)
+            if not np.array_equal(got, want):
+                fail(f"durable commit {len(commits)}: counts differ from "
+                     f"brute force")
+            commits.append({"drained": kind, "chain_before": chain,
+                            "folded": eng._base_epoch != epoch0,
+                            **steps.take()})
+        out["commits_to_fold"] = commits
+        # 4. and 5. a crash at each of two sites, each recovered exactly
+        for site in ("drain.pre_swap", "truncate.pre"):
+            for v in rng.integers(*days, CRASH_WRITES):
+                eng.write(float(v))
+            preds = writer_preds(Predicate, rng, NUM_PREDS)
+            want = expected_counts(torch, eng, intervals, preds)
+            tab = eng.index.table
+            state = (tab.num_pages, tab.fill, tab.cardinality,
+                     eng.writer.staged_rows)
+            if site == "truncate.pre" and \
+                    eng.writer.queue_depth == 0:
+                fail("setup: nothing staged before the truncate crash")
+            fi.crash_points.reset()
+            fi.crash_points.arm(site)
+            try:
+                for p in preds[:BATCH]:
+                    eng.submit(p)
+                try:
+                    eng.run_batch()
+                except fi.InjectedCrash:
+                    pass
+                else:
+                    fail(f"crash at {site} did not fire")
+                fired = fi.crash_points.fired(site)
+            finally:
+                fi.crash_points.reset()
+            crashed_steps = steps.take()
+            if site == "truncate.pre":
+                # the commit landed, the journal was not truncated: the
+                # drained rows sit both in the snapshot and in the journal
+                tab = eng.index.table
+                state = (tab.num_pages, tab.fill, tab.cardinality,
+                         eng.writer.staged_rows)
+            # kill -9: the engine and its index are dropped, only the
+            # directory survives
+            eng.journal.close()
+            held_before = torch.cuda.memory_allocated()
+            del eng, sidx, tab
+            gc.collect()
+            torch.cuda.empty_cache()
+            freed = held_before - torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            eng = QueryEngine.recover(root, device=dev, **kw)
+            torch.cuda.synchronize()
+            rec_s = time.perf_counter() - t
+            rec_steps = steps.take()
+            sidx = eng.index
+            tab = sidx.table
+            got_state = (tab.num_pages, tab.fill, tab.cardinality,
+                         eng.writer.staged_rows)
+            if got_state != state:
+                fail(f"recovery after {site}: (pages, fill, live tuples, "
+                     f"staged) {got_state} != acknowledged {state}")
+            t = time.perf_counter()
+            first = eng.run_all(preds[:BATCH])
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t
+            first_steps = steps.take()
+            rest = eng.run_all(preds[BATCH:])
+            if not np.array_equal(np.concatenate([first, rest]), want):
+                fail(f"recovery after {site}: counts differ from the "
+                     f"acknowledged state")
+            out[f"crash {site}"] = {
+                "fired": fired, "crashed_batch_steps_s": crashed_steps,
+                "freed_device_bytes": freed, "recover_s": rec_s,
+                "recover_steps_s": rec_steps,
+                "first_batch_s": first_s, "first_batch_steps_s": first_steps,
+                "acknowledged_live_tuples": state[2] + state[3]}
+            steps.take()
+        # 6. a writer-less load of the flushed directory
+        eng.flush()
+        preds = make_preds(Predicate, rng, NUM_PREDS)
+        want = expected_counts(torch, eng, intervals, preds)
+        steps.take()
+        t = time.perf_counter()
+        loaded = ShardedHippoIndex.load(root, device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t
+        out["load_steps_s"] = steps.take()
+        reader = QueryEngine(loaded, drain_policy="manual", **kw)
+        tickets = [reader.submit(p) for p in preds]
+        reader.drain()
+        brute_check(torch, loaded.table, dev, intervals, preds,
+                    [[tk] for tk in tickets], np.zeros(0, np.float32),
+                    "load")
+        if not np.array_equal([tk.count for tk in tickets], want):
+            fail("the loaded index's counts differ from the engine's")
+        del reader, loaded, tickets
+        gc.collect()
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        eng.close()
+        out["sites"] = site_sweep(torch, args, rng, root, Predicate,
+                                  QueryEngine, ShardedHippoIndex, PagedTable,
+                                  dev, fi, resilient_serve)
+        out["launches"] = launches
+        out["max_memory_allocated"] = peak
+        print("durable: " + json.dumps(out))
+        for name in MAIN_KERNELS:
+            if launches[name] == 0:
+                fail(f"kernel {name} was not launched in the durable phase")
+        print(f"durable checked: every batch, both recoveries and the load "
+              f"equal brute force; {len(fi.SITES)} crash sites recovered "
+              f"exact counts")
+        return sidx
+    finally:
+        steps.restore()
+        shutil.rmtree(root)
+
+
+def site_sweep(torch, args, rng, root, Predicate, QueryEngine,
+               ShardedHippoIndex, PagedTable, dev, fi, resilient_serve
+               ) -> dict:
+    """Every registered crash site through ``resilient_serve`` on an index
+    of ``--rows`` / 100 rows: a resumption-aware client writes, flushes
+    after every 6 writes, and the counts after recovery equal brute force
+    over the base rows plus every acknowledged write."""
+    if set(SITE_CONFIG) != set(fi.SITES):
+        fail(f"crash sites {fi.SITES} differ from the sweep's "
+             f"{sorted(SITE_CONFIG)}")
+    rows = max(args.rows // SWEEP_ROWS_DIVISOR, 1000)
+    base = rng.integers(0, SHIPDATE_DAYS, rows).astype(np.float32)
+    preds = make_preds(Predicate, rng, BATCH)
+    out = {}
+    for site in fi.SITES:
+        d = root / f"sweep-{site}"
+        sidx = ShardedHippoIndex.create(
+            PagedTable.from_values(base, PAGE_CARD, spare_pages=64),
+            num_shards=NUM_SHARDS, resolution=RESOLUTION, density=DENSITY,
+            device=dev)
+        kw = dict(batch=BATCH, drain_policy="manual", auto_resummarize=False,
+                  **SITE_CONFIG[site])
+        eng = QueryEngine(sidx, storage_dir=d, **kw)
+        writes = [float(v) for v in rng.integers(
+            SHIPDATE_DAYS, SHIPDATE_DAYS + NEW_DAYS, SWEEP_WRITES)]
+        acked = []
+        cursor = {"i": 0}
+
+        def workload(e):
+            end = min(cursor["i"] + 6, len(writes))
+            while cursor["i"] < end:
+                e.write(writes[cursor["i"]])      # raises: not acknowledged
+                acked.append(writes[cursor["i"]])
+                cursor["i"] += 1
+            e.flush()
+            return cursor["i"] >= len(writes)
+
+        fi.crash_points.reset()
+        fi.crash_points.arm(site)
+        t = time.perf_counter()
+        try:
+            eng, stats = resilient_serve(
+                d, workload, engine=eng,
+                recover_kwargs=dict(kw, device=dev), max_restarts=6,
+                backoff_base_s=0.001)
+            fired = fi.crash_points.fired(site)
+        finally:
+            fi.crash_points.reset()
+        serve_s = time.perf_counter() - t
+        if fired < 1:
+            fail(f"crash site {site} never fired")
+        if site == "persist.in_flight":
+            if stats.restores:
+                fail(f"{site}: the poison fallback should heal in place")
+            eng.flush_durable()
+        elif stats.restores < 1:
+            fail(f"{site}: the supervisor never recovered the engine")
+        eng.flush()
+        vals = np.concatenate([base, np.asarray(acked, np.float32)])
+        want = [int(((vals >= p.lo) & (vals <= p.hi)).sum()) for p in preds]
+        if eng.run_all(preds).tolist() != want or len(acked) != SWEEP_WRITES:
+            fail(f"after a crash at {site}: counts differ from the "
+                 f"acknowledged writes")
+        eng.close()
+        out[site] = {"fired": fired, "crashes": stats.crashes,
+                     "restores": stats.restores, "serve_s": serve_s}
+        del eng, sidx
+    out["rows"] = rows
+    return out
 
 
 def learned_phase(torch, args, K, intervals, Predicate, QueryEngine,

@@ -156,3 +156,90 @@ def rle_compress(words: np.ndarray) -> np.ndarray:
 def compressed_nbytes(words: np.ndarray) -> int:
     """Size in bytes of the RLE-compressed form (paper's storage metric)."""
     return int(rle_compress(words).nbytes)
+
+
+def rle_decompress(pairs: np.ndarray) -> np.ndarray:
+    """Inverse of ``rle_compress``: the words of interleaved (count, word)
+    pairs."""
+    pairs = np.asarray(pairs, dtype=np.uint32).reshape(-1, 2)
+    return np.repeat(pairs[:, 1], pairs[:, 0])
+
+
+def rle_encode_rows(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray,
+                                                np.ndarray]:
+    """Each row of (n, W) uint32 words as the smaller of its raw words and
+    its ``rle_compress`` pairs, in one vectorized pass: (flags u8 (n,), 1
+    where the row is RLE; lens u32 (n,), the words each row stores; data
+    u32, the rows' streams in row order). A row has 1 + #{j : w[j] !=
+    w[j-1]} runs and takes the RLE form iff twice that is below W. The same
+    bytes as the reference snapshot's per-entry loop."""
+    rows = np.asarray(rows, np.uint32)
+    n, w = rows.shape
+    change = rows[:, 1:] != rows[:, :-1]                      # (n, W-1)
+    runs = 1 + change.sum(axis=1)
+    rle = 2 * runs < w
+    lens = np.where(rle, 2 * runs, w).astype(np.uint32)
+    ends = np.cumsum(lens, dtype=np.int64)
+    offs = ends - lens
+    data = np.empty((int(ends[-1]) if n else 0,), np.uint32)
+    raw = np.flatnonzero(~rle)
+    data[(offs[raw, None] + np.arange(w)).ravel()] = rows[raw].ravel()
+    r = np.flatnonzero(rle)
+    if r.size:
+        starts = np.concatenate(
+            [np.ones((r.size, 1), bool), change[r]], axis=1)   # run starts
+        row, col = np.nonzero(starts)                  # row-major order
+        nxt = np.append(col[1:], w)
+        last = np.append(row[1:] != row[:-1], True)    # a row's final run
+        counts = np.where(last, w, nxt) - col
+        first = np.cumsum(runs[r]) - runs[r]           # run index of row
+        k = np.arange(row.size) - first[row]
+        pos = offs[r][row] + 2 * k
+        data[pos] = counts
+        data[pos + 1] = rows[r][row, col]
+    return rle.astype(np.uint8), lens, data
+
+
+def rle_decode_rows(flags: np.ndarray, lens: np.ndarray, data: np.ndarray,
+                    words: int) -> np.ndarray:
+    """Inverse of ``rle_encode_rows``: (n, words) uint32. Refuses, as the
+    reference's loop does, data shorter than the lengths claim and a row
+    that decodes to another word count (``CorruptSnapshotError``),
+    whichever row fails first."""
+    from repro_torch.checkpointing.layout import CorruptSnapshotError
+    flags = np.asarray(flags).astype(bool)
+    lens = np.asarray(lens, np.int64)
+    data = np.asarray(data, np.uint32)
+    n = flags.shape[0]
+    ends = np.cumsum(lens)
+    offs = ends - lens
+    short = np.flatnonzero(ends > data.size)
+    first_short = int(short[0]) if short.size else n
+    ok = np.arange(n) < first_short
+    # words each complete row decodes to: its length raw, its counts RLE
+    got = lens.copy()
+    r = np.flatnonzero(flags & ok)
+    odd = (lens[r] % 2).astype(bool)
+    npairs = lens[r] // 2
+    first = np.cumsum(npairs) - npairs                 # pair index of row
+    pairs_row = np.repeat(np.arange(r.size), npairs)
+    pair_pos = (offs[r][pairs_row]
+                + 2 * (np.arange(pairs_row.size) - first[pairs_row]))
+    counts = data[pair_pos].astype(np.int64)
+    csum = np.concatenate([[0], np.cumsum(counts)])
+    got[r] = csum[first + npairs] - csum[first]
+    got[r[odd]] = -1                          # not whole (count, word) pairs
+    bad = np.flatnonzero(ok & (got != words))
+    if bad.size:
+        raise CorruptSnapshotError(
+            f"entry bitmap decodes to {int(got[bad[0]])} words, index "
+            f"resolution wants {words}")
+    if first_short < n:
+        raise CorruptSnapshotError(
+            "bitmap section shorter than its per-entry lengths claim")
+    out = np.empty((n, words), np.uint32)
+    raw = np.flatnonzero(~flags)
+    out[raw] = data[(offs[raw, None] + np.arange(words)).reshape(
+        raw.size, words)]
+    out[r] = np.repeat(data[pair_pos + 1], counts).reshape(r.size, words)
+    return out

@@ -14,6 +14,10 @@ dispatch reads), and maintenance routed to the owning shard: the eager
 ``insert``, the atomic ``insert_batch``, ``vacuum`` and ``vacuum_shard``,
 each recomputing the touched shard's summary.
 
+Persistence (``save``, ``save_delta``, ``load``) goes through
+``checkpointing.snapshot``: the same ``HIPPOIX1`` directories the reference
+writes and reads.
+
 Summary policies (``SUMMARY_POLICIES``): ``equal_mass`` builds the bounds as
 quantiles of the build sample, ``learned`` fits them with
 ``core.learned.build_histogram`` (the same sample); the writer's drift refits
@@ -542,3 +546,34 @@ class ShardedHippoIndex:
                     for s in range(self.spec.num_shards))
         total += self.spec.num_shards * 8
         return total + self.state.summaries.numel() * 4
+
+    # -- persistence (checkpointing.snapshot) --------------------------------
+
+    def save(self, root, *, wal_seqno: int = 0, keep: int = 3, **kw):
+        """Durably snapshot this index (table, shards, bounds/epochs, models,
+        and any attached writer's staged state) under ``<root>/snap_<N>/``.
+        Returns the committed snapshot directory. Extra keywords (``epoch``,
+        ``compact``) pass through to
+        ``repro_torch.checkpointing.snapshot.save_index``."""
+        from repro_torch.checkpointing.snapshot import save_index
+        return save_index(root, self, wal_seqno=wal_seqno, keep=keep, **kw)
+
+    def save_delta(self, root, *, shards, wal_seqno: int = 0, **kw):
+        """Durably commit an incremental delta — the given shards' index
+        sections and table slab rows — against the last full snapshot under
+        ``root``. See ``repro_torch.checkpointing.snapshot.save_delta``."""
+        from repro_torch.checkpointing.snapshot import save_delta
+        return save_delta(root, self, shards=shards, wal_seqno=wal_seqno,
+                          **kw)
+
+    @staticmethod
+    def load(root, *, epoch: int | None = None,
+             device=None) -> "ShardedHippoIndex":
+        """Reconstruct the latest (or a given) committed snapshot on
+        ``device`` (None: the card). Counts, row ids, bounds, epochs, and
+        learned models round-trip exactly; use
+        ``checkpointing.snapshot.recover_index`` (or
+        ``runtime.engine.QueryEngine.recover``) to also replay a write-ahead
+        journal after a crash."""
+        from repro_torch.checkpointing.snapshot import load_index
+        return load_index(root, epoch=epoch, device=device)[0]

@@ -53,12 +53,23 @@ unit per shard, drained by the policy); ``resummarize()`` does it on demand.
 ``EngineStats`` carries the queue, drain and drift figures and the pruning
 window around the last remap, as the reference's does.
 
-Durable storage (``storage_dir``) is not ported yet and is refused with
-``NotImplementedError`` (ROADMAP.md queue 1 item 13).
+Durable storage (``storage_dir``, writer-backed engines): every
+acknowledged ``write``/``delete``/``resummarize`` appends its journal record
+before it is staged, the engine commits a full snapshot at start and, at
+each drain, a delta of the shards the drain changed (a full snapshot under
+``snapshot_mode="full"`` or when the compaction policy fires: after
+``compact_every`` deltas, or once the chain outweighs ``compact_ratio`` of
+its base), then truncates the journal through the commit's watermark.
+``background_save`` hands the file I/O to a ``runtime.persister`` thread.
+``QueryEngine.recover(storage_dir, device=...)`` rebuilds an engine after
+a crash at any instant: the last committed snapshot, its delta chain and
+the journal's suffix. The files are the reference's, byte for byte.
 """
 from __future__ import annotations
 
+import threading
 from collections import deque
+from pathlib import Path
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -104,10 +115,9 @@ class QueryTicket:
 
 @dataclass
 class EngineStats:
-    """The reference's ``EngineStats`` fields; the persistence fields stay 0
-    until durable storage lands. In routed dense mode the slot counters count
-    per-shard dispatch widths (a query sent to several shards fills one slot
-    in each)."""
+    """The reference's ``EngineStats`` fields. In routed dense mode the slot
+    counters count per-shard dispatch widths (a query sent to several shards
+    fills one slot in each)."""
     submitted: int = 0
     served: int = 0
     batches: int = 0
@@ -134,10 +144,10 @@ class EngineStats:
     queue_depth: int = 0
     peak_queue_depth: int = 0
     staged_rows: int = 0
-    # -- durable persistence -------------------------------------------------
-    persists: int = 0
-    persist_pending: int = 0
-    persist_lag: int = 0
+    # -- durable persistence (checkpointing + runtime.persister) -------------
+    persists: int = 0          # durable commits (full snapshots + deltas)
+    persist_pending: int = 0   # background commits queued or in flight
+    persist_lag: int = 0       # journal records not yet covered by a commit
     # -- drift re-summarization ----------------------------------------------
     resummarizes: int = 0
     edge_overflow_ratio: float = 0.0
@@ -192,6 +202,15 @@ class QueryEngine:
     (``drift_threshold``, ``auto_resummarize``, ``drift_min_observed``) and
     ``summary`` (the boundary policy of the remaps this engine schedules;
     None: the index's own) apply to writer-backed engines.
+
+    ``storage_dir`` makes a writer-backed engine durable (see the module
+    docstring); the directory must be fresh (``recover`` adopts an existing
+    one). ``snapshot_on_drain`` commits at each drain, ``wal_sync`` fsyncs
+    each journal record, ``snapshot_mode`` (``"incremental"`` or
+    ``"full"``), ``compact_every``, ``compact_ratio`` and ``snapshot_keep``
+    (full snapshots kept, each with its chain) shape the commits, and
+    ``background_save`` with ``persist_queue`` moves their file I/O to a
+    persister thread.
     """
 
     def __init__(self, index, batch: int = 64, sharded: bool | None = None,
@@ -201,7 +220,11 @@ class QueryEngine:
                  drift_threshold: float | None = 0.25,
                  auto_resummarize: bool = True,
                  drift_min_observed: int = 256, summary: str | None = None,
-                 storage_dir=None):
+                 storage_dir=None, snapshot_on_drain: bool = True,
+                 wal_sync: bool = True, snapshot_mode: str = "incremental",
+                 background_save: bool = False, compact_every: int = 8,
+                 compact_ratio: float = 0.5, snapshot_keep: int = 3,
+                 persist_queue: int = 4):
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
         self.index = index
@@ -264,10 +287,6 @@ class QueryEngine:
         if summary is not None and summary not in SUMMARY_POLICIES:
             raise ValueError(f"summary must be one of {SUMMARY_POLICIES} or "
                              f"None (the index's policy), got {summary!r}")
-        if storage_dir is not None:
-            raise NotImplementedError(
-                "durable storage (storage_dir) is not ported yet (ROADMAP.md, "
-                "queue 1 item 13)")
         if writer is None and drain_policy != "sync":
             writer = MaintenanceWriter(index)
         self.writer = writer
@@ -280,6 +299,64 @@ class QueryEngine:
         self.stats = EngineStats()
         self._next_qid = 0
         self._auto_drain_suspended = False
+        # -- durable storage (checkpointing.snapshot + checkpointing.wal) ----
+        # With ``storage_dir`` set, every acknowledged write()/delete()/
+        # resummarize journals before it stages, and each drain commits a
+        # snapshot then truncates the journal through its watermark. The
+        # directory must be fresh: existing durable state is recover()'s.
+        self.storage_dir = Path(storage_dir) if storage_dir is not None \
+            else None
+        self.snapshot_on_drain = snapshot_on_drain
+        self.journal = None
+        if snapshot_mode not in ("full", "incremental"):
+            raise ValueError(f"snapshot_mode must be 'full' or "
+                             f"'incremental', got {snapshot_mode!r}")
+        if compact_every < 1:
+            raise ValueError(f"compact_every must be >= 1, got "
+                             f"{compact_every}")
+        if compact_ratio <= 0:
+            raise ValueError(f"compact_ratio must be > 0, got "
+                             f"{compact_ratio}")
+        self.snapshot_mode = snapshot_mode
+        self.background_save = background_save
+        self.compact_every = compact_every
+        self.compact_ratio = compact_ratio
+        self.snapshot_keep = snapshot_keep
+        self.persist_queue = persist_queue
+        self._persister = None
+        self._base_epoch = None        # epoch of the current full base
+        self._delta_seq = 0            # committed deltas against it
+        self._full_bytes = 0           # base snapshot payload size
+        self._delta_bytes = 0          # cumulative chain payload size
+        # the persister's commit callback (_commit_job, worker thread)
+        # advances the durable watermark while the foreground reads it for
+        # persist_lag; both sides go through this lock
+        self._durable_lock = threading.Lock()
+        self._durable_watermark = 0    # guarded-by: _durable_lock
+        #                                (highest seqno covered by a commit)
+        if self.storage_dir is not None:
+            if self.writer is None:
+                raise ValueError(
+                    "storage_dir needs a writer-backed engine (an async "
+                    "drain_policy on a ShardedHippoIndex); a writer-less "
+                    "index persists directly via index.save()")
+            from repro_torch.checkpointing.snapshot import latest_epoch
+            from repro_torch.checkpointing.wal import Journal
+            journal = Journal(self.storage_dir, index.spec.num_shards,
+                              sync=wal_sync)
+            if latest_epoch(self.storage_dir) is not None \
+                    or journal.last_seqno > 0:
+                raise ValueError(
+                    f"storage_dir {self.storage_dir} already holds a "
+                    f"snapshot or journal — use QueryEngine.recover() to "
+                    f"adopt existing durable state")
+            self.journal = journal
+            if self.writer.journal is None:
+                self.writer.journal = journal
+            # initial durable base: recovery needs a committed snapshot to
+            # replay the journal against, even before the first drain
+            self.save()
+            self._start_persister()
 
     # -- admission -----------------------------------------------------------
 
@@ -387,17 +464,261 @@ class QueryEngine:
         st.window_table_pages = 0
 
     def _drain(self, max_units: int | None) -> int:
+        before = self.writer.stats.drains
         try:
             rows = self.writer.drain(max_units)
         finally:
             # a refused drain may have applied some units: report them
             self._sync_writer_stats()
         self._auto_drain_suspended = False      # a successful drain re-arms
+        if (self.storage_dir is not None and self.snapshot_on_drain
+                and self.writer.stats.drains > before):
+            # the drain's commit point: the watermark is recorded before
+            # the commit and the journal truncated through it only after,
+            # so a crash anywhere between replays nothing twice and loses
+            # nothing acknowledged
+            self._commit_snapshot()
+            self._sync_writer_stats()
         return rows
+
+    # -- durable commits (incremental deltas, background persistence) --------
+
+    def _commit_snapshot(self) -> None:
+        """The per-drain durable commit: a delta of the shards this drain
+        round changed, or a full snapshot when one is due (first commit,
+        ``snapshot_mode='full'``, ``compact_every`` deltas, or a chain of at
+        least ``compact_ratio`` of the base). Synchronous unless
+        ``background_save`` handed commits to the persister."""
+        wm = self.journal.last_seqno
+        dirty = self.writer.dirty_checkpoint_shards()
+        full_due = (self.snapshot_mode == "full"
+                    or self._base_epoch is None
+                    or self._delta_seq >= self.compact_every
+                    or (self._full_bytes > 0 and self._delta_bytes
+                        >= self.compact_ratio * self._full_bytes))
+        if self._persister is not None:
+            self._submit_background(full_due, dirty, wm)
+            return
+        if full_due:
+            self.save()
+            return
+        path = self.index.save_delta(
+            self.storage_dir, shards=dirty, wal_seqno=wm,
+            base_epoch=self._base_epoch, delta_seq=self._delta_seq + 1)
+        self._note_delta(path, self._delta_seq + 1)
+        self.writer.clear_checkpoint_dirty()
+        self._truncate_journal(wm)
+        self.stats.persists += 1
+
+    def _submit_background(self, full: bool, dirty, wm: int) -> None:
+        """Collect sections in the foreground (the index is mutable again
+        when this returns) and hand the file I/O to the persister. The
+        epoch or sequence number is reserved here, so jobs commit in
+        submission order; the dirty set clears at submit, which is safe
+        because a failed job poisons the persister and the only way out is
+        a synchronous full save."""
+        from repro_torch.checkpointing.snapshot import (collect_delta_sections,
+                                                        collect_full_sections)
+        from repro_torch.runtime.persister import PersisterPoisoned
+        try:
+            if full:
+                epoch = (self._base_epoch or 0) + 1
+                sections = collect_full_sections(self.index, wm)
+                self._persister.submit(
+                    {"kind": "full", "sections": sections, "epoch": epoch,
+                     "compact": self._delta_seq > 0, "watermark": wm})
+                self._base_epoch = epoch
+                self._delta_seq = 0
+                self._full_bytes = sum(a.nbytes for a in sections.values())
+                self._delta_bytes = 0
+            else:
+                seq = self._delta_seq + 1
+                sections = collect_delta_sections(self.index, wm, dirty,
+                                                  self._base_epoch, seq)
+                self._persister.submit(
+                    {"kind": "delta", "sections": sections,
+                     "base_epoch": self._base_epoch, "seq": seq,
+                     "watermark": wm})
+                self._delta_seq = seq
+                self._delta_bytes += sum(a.nbytes
+                                         for a in sections.values())
+            self.writer.clear_checkpoint_dirty()
+            self.stats.persists += 1
+        except PersisterPoisoned:
+            # a background commit failed: supersede the broken chain with a
+            # synchronous full snapshot (which clears the poison)
+            self.save()
+
+    def _commit_job(self, job: dict) -> None:  # thread: worker
+        """The persister worker's half: the file I/O, then (and only then)
+        the journal truncation through the job's watermark, so records
+        appended while the job was in flight survive to the next commit.
+
+        Runs on the ``BackgroundPersister`` thread. It reads only
+        attributes fixed before ``_start_persister()`` spawned the worker
+        (``storage_dir``, ``journal``, ``snapshot_keep``) and the job, and
+        publishes one thing back: the durable watermark, under
+        ``_durable_lock``."""
+        from repro_torch.checkpointing.snapshot import (write_delta_snapshot,
+                                                        write_full_snapshot)
+        from repro_torch.runtime.faultinject import crashpoint
+        if job["kind"] == "full":
+            # hippolint: disable=locks -- storage_dir is rebound only by
+            # _adopt_storage, which runs before _start_persister spawns
+            # this worker; it is immutable for the persister's lifetime
+            write_full_snapshot(self.storage_dir, job["sections"],
+                                keep=self.snapshot_keep,
+                                epoch=job["epoch"], compact=job["compact"])
+        else:
+            write_delta_snapshot(self.storage_dir, job["sections"],
+                                 job["base_epoch"], job["seq"])
+        crashpoint("truncate.pre")
+        # hippolint: disable=locks -- journal is rebound only by
+        # _adopt_storage before _start_persister spawns this worker; the
+        # Journal object itself is internally locked (wal.py)
+        self.journal.truncate_through(job["watermark"])
+        with self._durable_lock:
+            self._durable_watermark = job["watermark"]
+
+    def _truncate_journal(self, wm: int) -> None:
+        """Journal clean-up after a commit: a quiet journal (nothing
+        appended past the watermark) resets outright; otherwise only records
+        at or below the watermark are dropped."""
+        from repro_torch.runtime.faultinject import crashpoint
+        crashpoint("truncate.pre")
+        if self.journal.last_seqno == wm:
+            self.journal.reset()
+        else:
+            self.journal.truncate_through(wm)
+        with self._durable_lock:
+            self._durable_watermark = wm
+
+    def _note_full(self, path, epoch: int) -> None:
+        self._base_epoch = epoch
+        self._delta_seq = 0
+        self._full_bytes = (path / "index.bin").stat().st_size
+        self._delta_bytes = 0
+
+    def _note_delta(self, path, seq: int) -> None:
+        self._delta_seq = seq
+        self._delta_bytes += (path / "index.bin").stat().st_size
+
+    def _start_persister(self) -> None:
+        if self.background_save and self.storage_dir is not None \
+                and self._persister is None:
+            from repro_torch.runtime.persister import BackgroundPersister
+            self._persister = BackgroundPersister(
+                self._commit_job, max_queue=self.persist_queue)
+
+    def save(self):
+        """Synchronous full durable commit: snapshot the whole index (staged
+        queues included), fold any delta chain into the new base, truncate
+        the journal. Returns the committed snapshot directory. Needs
+        ``storage_dir``. After a failed background commit this supersedes
+        the broken chain and re-enables background persistence."""
+        if self.storage_dir is None:
+            raise RuntimeError("save() needs storage_dir (durable mode); "
+                               "writer-less indexes persist via index.save()")
+        if self._persister is not None:
+            # settle in-flight commits first; if one failed, this full
+            # snapshot is about to supersede the whole chain anyway
+            self._persister.flush(raise_on_poison=False)
+        wm = self.journal.last_seqno
+        epoch = (self._base_epoch or 0) + 1
+        path = self.index.save(self.storage_dir, wal_seqno=wm,
+                               keep=self.snapshot_keep, epoch=epoch,
+                               compact=self._delta_seq > 0)
+        self._note_full(path, epoch)
+        self.writer.clear_checkpoint_dirty()
+        if self._persister is not None:
+            self._persister.clear_poison()
+        self._truncate_journal(wm)
+        self.stats.persists += 1
+        return path
+
+    def flush_durable(self) -> None:
+        """Barrier: return once every submitted background commit is on
+        disk (a no-op without ``background_save``). Raises
+        ``PersisterPoisoned`` if a background commit failed; ``save()``
+        supersedes the broken chain."""
+        if self._persister is not None:
+            self._persister.flush()
+
+    def close(self) -> None:
+        """Stop the background persister (flush + join) and close the
+        journal's files. Safe to call more than once; the engine stays
+        queryable, but durable commits stop."""
+        if self._persister is not None:
+            try:
+                self._persister.flush(raise_on_poison=False)
+            finally:
+                self._persister.close()
+            self._persister = None
+        if self.journal is not None:
+            self.journal.close()
+
+    @classmethod
+    def recover(cls, storage_dir, *, device=None, wal_sync: bool = True,
+                snapshot_on_recover: bool = True, **kwargs) -> "QueryEngine":
+        """Rebuild an engine from a durable directory after a crash, on
+        ``device`` (None: the card): the latest committed snapshot and its
+        delta chain (uncommitted partials are ignored, a gapped chain is
+        refused), the journal's suffix replayed through a fresh writer, and
+        the journal re-attached so later writes stay durable.
+        ``snapshot_on_recover`` folds all of it into a fresh full base at
+        once. ``kwargs`` configure the engine as usual (``storage_dir``
+        comes from the first argument)."""
+        if "storage_dir" in kwargs or "writer" in kwargs:
+            raise ValueError("recover() derives storage_dir and writer from "
+                             "the durable directory itself")
+        from repro_torch.checkpointing.snapshot import recover_index
+        idx, writer, journal = recover_index(storage_dir, wal_sync=wal_sync,
+                                             device=device)
+        if writer is None:
+            writer = MaintenanceWriter(idx)
+            writer.journal = journal
+        eng = cls(idx, writer=writer, **kwargs)
+        eng._adopt_storage(Path(storage_dir), journal)
+        eng._sync_writer_stats()
+        if snapshot_on_recover:
+            eng.save()
+        return eng
+
+    def _adopt_storage(self, root, journal) -> None:
+        """Attach existing durable state (the recover() path): the on-disk
+        base epoch, the chain's position and its byte counts, so the
+        compaction policy resumes where the crashed process left off."""
+        from repro_torch.checkpointing.snapshot import (latest_delta_seq,
+                                                        latest_epoch)
+        self.storage_dir = root
+        self.journal = journal
+        if self.writer.journal is None:
+            self.writer.journal = journal
+        self._base_epoch = latest_epoch(root)
+        self._delta_seq = (latest_delta_seq(root, self._base_epoch)
+                           if self._base_epoch is not None else 0)
+        if self._base_epoch is not None:
+            self._full_bytes = (root / f"snap_{self._base_epoch}"
+                                / "index.bin").stat().st_size
+            self._delta_bytes = sum(
+                (root / f"delta_{self._base_epoch}_{k}"
+                 / "index.bin").stat().st_size
+                for k in range(1, self._delta_seq + 1))
+        # until the next commit records a watermark, persist_lag reports
+        # the whole surviving journal as not yet snapshotted
+        with self._durable_lock:
+            self._durable_watermark = 0
+        self._start_persister()
 
     def _sync_writer_stats(self) -> None:
         w = self.writer
         st = self.stats
+        if self.journal is not None:
+            with self._durable_lock:
+                wm = self._durable_watermark
+            st.persist_lag = max(0, self.journal.last_seqno - wm)
+        if self._persister is not None:
+            st.persist_pending = self._persister.pending
         st.drains = w.stats.drains
         st.drained_rows = w.stats.drained_rows
         st.drain_us = w.stats.total_drain_us

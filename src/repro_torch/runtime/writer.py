@@ -41,9 +41,16 @@ same swap discipline. Remap units drain before insert queues, so staged rows
 land under the new bounds; each remapped shard bumps its ``bounds_epochs``
 entry.
 
-``runtime.engine.QueryEngine`` owns the interleave and drift policies; the
-writer is mechanism. The write-ahead journal is not ported (ROADMAP.md,
-queue 1 item 13): a writer takes ``journal=None`` only.
+Durability: with a ``checkpointing.wal.Journal`` attached (``journal``),
+every staged insert, every delete and every scheduled re-summarization
+appends its record before the writer changes any state (append before
+admission), so an acknowledged operation survives a crash at any instant;
+``checkpointing.snapshot.recover_index`` replays the journal through a
+fresh writer. ``dirty_checkpoint_shards`` is the delta capture set of the
+durable commits.
+
+``runtime.engine.QueryEngine`` owns the interleave, drift and durability
+policies; the writer is mechanism.
 """
 from __future__ import annotations
 
@@ -123,14 +130,12 @@ class MaintenanceWriter:
 
     Constructing the writer attaches it to the index (``index.staging``), so
     every search path folds the staging overlay into counts from then on.
-    Drains, the overlay and remaps run on the index's device.
+    Drains, the overlay and remaps run on the index's device. ``journal``
+    (a ``checkpointing.wal.Journal``, or None) makes every staged operation
+    durable before it is admitted.
     """
 
     def __init__(self, index, journal=None):
-        if journal is not None:
-            raise NotImplementedError(
-                "the write-ahead journal is not ported yet (ROADMAP.md, "
-                "queue 1 item 13)")
         for attr in ("spec", "state", "plan_batch"):
             if not hasattr(index, attr):
                 raise ValueError(
@@ -146,6 +151,9 @@ class MaintenanceWriter:
                 f"rows pending: flush() it before attaching a new one")
         self.index = index
         index.staging = self
+        # write-ahead journal: write(), delete() and schedule_resummarize()
+        # append their record before mutating anything
+        self.journal = journal
         self._queues: dict[int, _ShardQueue] = {}
         self._staged_total = 0       # pending tuples, dead rows included
         self._version = 0            # bumps on any staging change
@@ -199,6 +207,10 @@ class MaintenanceWriter:
                 f"past shard {spec.num_shards - 1}'s slab "
                 f"(pages_per_shard={spec.pages_per_shard}); rebuild with more "
                 f"shards or larger slabs")
+        if self.journal is not None:
+            # durable before acknowledged: if this append fails, the write
+            # raises with nothing staged and nothing to lose
+            self.journal.append_insert(s, float(value))
         self._queues.setdefault(s, _ShardQueue()).append(float(value))
         self._staged_total += 1
         self._version += 1
@@ -214,6 +226,8 @@ class MaintenanceWriter:
         deleted (table + staged)."""
         self.index._check_swap_guard()
         self._check_attached()
+        if self.journal is not None:
+            self.journal.append_delete(float(lo), float(hi))
         table = self.index.table
         spec = self.index.spec
         was_fresh = table._dev_shard is not None and not table._dev_shard_stale
@@ -315,6 +329,12 @@ class MaintenanceWriter:
                 hist = hg.rebuild(self.drift.armed_histogram, sample)
             bounds = hg.host_bounds(hist)
         bounds = np.asarray(bounds, np.float32)
+        if self.journal is not None:
+            # the materialized bounds are journaled (not the reservoir they
+            # came from), so replay schedules the identical remap; nothing
+            # above changed writer state, so a crash before the record is
+            # durable leaves no trace of the unacknowledged operation
+            self.journal.append_resummarize(bounds, policy)
         self._pending_model = pending_model
         if fallback:
             self.stats.learned_fallbacks += 1

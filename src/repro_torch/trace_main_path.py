@@ -20,7 +20,12 @@ compact batches after them with the staged rows in the overlay (with and
 without a drain before them), one drain unit of each kind (a shard's
 remap, the insert queue with its slab patch, a shard's vacuum after
 deleting another day), and one remap of one shard
-(``core.index.resummarize_shard`` alone). Prints, per window, the
+(``core.index.resummarize_shard`` alone); then durability, in a fresh
+temporary directory: one full save split into its collect and its write
+with the fsyncs, one delta commit of the insert queue a drain of 4,096
+journaled writes changed, and one recovery of that directory (4,096 more
+journaled writes staged) split into read with the CRC, decode with the
+upload, and the journal replay. Prints, per window, the
 wall time, the device-busy share of that window (summed kernel time over
 wall time), the number of device-to-host copies (each one a host sync) and
 the operators by device time.
@@ -28,12 +33,17 @@ the operators by device time.
 from __future__ import annotations
 
 import argparse
+import shutil
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.checkpointing import snapshot as snap
+from repro_torch.checkpointing.wal import Journal
 from repro_torch.core import histogram as hg
 from repro_torch.core import index as hix
 from repro_torch.core.hippo import HippoIndex
@@ -41,6 +51,7 @@ from repro_torch.core.histogram import Histogram
 from repro_torch.core.partition import ShardedHippoIndex
 from repro_torch.core.predicate import Predicate
 from repro_torch.runtime.engine import QueryEngine
+from repro_torch.runtime.writer import MaintenanceWriter
 from repro_torch.storage.table import PagedTable
 
 SHIPDATE_DAYS = 7 * 365
@@ -113,6 +124,41 @@ def main() -> None:
     _profiled(f"vacuum after deleting day {day:g} ({table.num_dirty:,} "
               f"dirty pages)", sidx.vacuum)
     _writer_windows(rng, sidx)
+    _durable_windows(rng, sidx)
+
+
+def _durable_windows(rng, sidx) -> None:
+    """A full save (collect, then write + fsync), a delta commit after a
+    drain of 4,096 journaled writes, and a recovery (read + CRC, decode +
+    upload, replay of 4,096 journaled writes), in a temporary directory
+    that is removed at the end."""
+    root = Path(tempfile.mkdtemp(prefix="hippo-trace-"))
+    try:
+        out = {}
+        _profiled("full save: collect", lambda: out.update(
+            sections=snap.collect_full_sections(sidx, 0)), cpu=True)
+        _profiled("full save: write + fsync", lambda: snap.write_full_snapshot(
+            root, out.pop("sections")), cpu=True)
+        journal = Journal(root, sidx.num_shards, sync=False)
+        writer = MaintenanceWriter(sidx, journal=journal)
+        for v in rng.integers(0, SHIPDATE_DAYS, 4096):
+            writer.write(float(v))
+        writer.drain(1)
+        _profiled("delta commit (one insert-queue drain)",
+                  lambda: snap.save_delta(
+                      root, sidx, shards=writer.dirty_checkpoint_shards(),
+                      wal_seqno=journal.last_seqno), cpu=True)
+        for v in rng.integers(0, SHIPDATE_DAYS, 4096):
+            writer.write(float(v))
+        journal.close()
+        _profiled("recover: read + CRC", lambda: out.update(
+            raw=snap._load_chain(root, None)), cpu=True)
+        _profiled("recover: decode + upload", lambda: out.update(
+            index=snap._build_index(*out["raw"], sidx.device)), cpu=True)
+        _profiled("recover: journal replay", lambda: snap._replay_journal(
+            root, out["index"], *out["raw"], False)[1].close(), cpu=True)
+    finally:
+        shutil.rmtree(root)
 
 
 def _writer_windows(rng, sidx) -> None:

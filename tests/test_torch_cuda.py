@@ -644,6 +644,86 @@ def test_learned_index_on_card_equals_cpu():
     assert out["cuda"] == out["cpu"]
 
 
+def _durable_stream(dev: str, root) -> list:
+    """A durable engine on ``dev``: journaled writes, a delete, drains that
+    commit deltas, then a crash before a swap and ``QueryEngine.recover``
+    on the same device; returns every count, the directory's files and
+    the recovered state."""
+    from repro_torch.runtime import faultinject as fi
+    rng = np.random.default_rng(9)
+    vals = rng.integers(0, 2555, 30_000).astype(np.float32)
+    sidx = ShardedHippoIndex.create(PagedTable.from_values(vals, 50),
+                                    num_shards=4, device=dev)
+    kw = dict(batch=32, top_k=8, wal_sync=False)
+    eng = QueryEngine(sidx, storage_dir=root, **kw)
+    preds = [Predicate.between(float(lo), float(lo + w)) for lo, w in
+             zip(rng.integers(0, 2645, 40), [0, 9, 99] * 14)]
+    out = []
+    for r in range(4):
+        for v in rng.integers(2300, 2645, 300):
+            eng.write(float(v))
+        if r == 1:
+            out.append(eng.delete(100.0, 110.0))
+        out.append(eng.run_all(preds).tolist())
+    for v in rng.integers(0, 2645, 200):
+        eng.write(float(v))
+    fi.crash_points.reset()
+    fi.crash_points.arm("drain.pre_swap")
+    try:
+        with pytest.raises(fi.InjectedCrash):
+            eng.flush()
+    finally:
+        fi.crash_points.reset()
+    eng.close()
+    del eng, sidx
+    eng = QueryEngine.recover(root, device=dev, **kw)
+    assert eng.index.device.type == dev
+    out.append(eng.writer.staged_rows)
+    out.append(eng.run_all(preds).tolist())
+    eng.flush()
+    out.append(eng.run_all(preds).tolist())
+    eng.close()
+    out.append(sorted(p.name for p in root.iterdir()))
+    out.append([f.cpu().numpy().tolist() for f in eng.index.state.shards])
+    loaded = ShardedHippoIndex.load(root, device=dev)
+    out.append(QueryEngine(loaded, batch=32, drain_policy="manual")
+               .run_all(preds).tolist())
+    return out
+
+
+@needs_cuda
+def test_durable_engine_on_card_equals_cpu(tmp_path):
+    got = _durable_stream("cuda", tmp_path / "cuda")
+    want = _durable_stream("cpu", tmp_path / "cpu")
+    assert got == want
+    assert (tmp_path / "cuda" / "snap_2" / "index.bin").read_bytes() == \
+        (tmp_path / "cpu" / "snap_2" / "index.bin").read_bytes()
+
+
+@needs_cuda
+def test_save_and_load_on_card(tmp_path):
+    vals = np.random.default_rng(10).integers(0, 2555, 40_000).astype(
+        np.float32)
+    preds = [Predicate.between(float(lo), float(lo + w)) for lo, w in
+             zip(np.random.default_rng(11).integers(0, 2400, 30),
+                 [0, 9, 99] * 10)]
+    sidx = ShardedHippoIndex.create(PagedTable.from_values(vals, 50),
+                                    num_shards=3)
+    sidx.save(tmp_path)
+    back = ShardedHippoIndex.load(tmp_path)
+    assert back.device.type == "cuda"
+    for a, b in zip(sidx.state, back.state):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert np.array_equal(QueryEngine(sidx, batch=16).run_all(preds),
+                          QueryEngine(back, batch=16).run_all(preds))
+    on_cpu = ShardedHippoIndex.load(tmp_path, device="cpu")
+    assert all(torch.equal(x.cpu(), y) for x, y in
+               zip(back.state.shards, on_cpu.state.shards))
+
+
 @needs_cuda
 def test_cuda_tensor_raises_when_the_library_fails(monkeypatch):
     def broken():

@@ -98,17 +98,27 @@ def test_constructor_refusals_match_reference(pair, kwargs):
         TEngine(t, **kwargs)
 
 
-def test_unported_surfaces_refuse_loudly(pair, tmp_path):
-    # durable storage (ROADMAP.md item 13) is refused: an engine's
-    # storage_dir and a writer's journal; the writer and learned summaries,
-    # refused before they were ported, now equal the reference
-    _, t = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 13"):
-        TEngine(t, storage_dir=tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 13"):
-        TWriter(t, journal=object())
+def test_unported_surfaces_refuse_loudly(tmp_path):
+    # the name is the one this test had while durable storage, the writer
+    # and learned summaries were refused; all are ported now, so it holds
+    # them against the reference: storage_dir commits an initial full
+    # snapshot (the same bytes), and the writer and learned bounds equal
     values = np.random.default_rng(22).integers(0, 2555, 3000).astype(
         np.float32)
+    jd = JEngine(JSharded.create(JTable.from_values(values, 8, spare_pages=64),
+                                 num_shards=2, resolution=64),
+                 storage_dir=tmp_path / "j", wal_sync=False)
+    td = TEngine(TSharded.create(TTable.from_values(values, 8, spare_pages=64),
+                                 num_shards=2, resolution=64, device="cpu"),
+                 storage_dir=tmp_path / "t", wal_sync=False)
+    assert isinstance(td.writer, TWriter) and td.writer.journal is td.journal
+    assert (td.stats.persists, td._base_epoch) == (1, 1)
+    for d in ("j", "t"):
+        assert (tmp_path / d / "snap_1" / "COMMITTED").exists()
+    assert (tmp_path / "t" / "snap_1" / "index.bin").read_bytes() == \
+        (tmp_path / "j" / "snap_1" / "index.bin").read_bytes()
+    jd.close()
+    td.close()
     j = JSharded.create(JTable.from_values(values, 8, spare_pages=64),
                         num_shards=2, resolution=64, summary="learned")
     t = TSharded.create(TTable.from_values(values, 8, spare_pages=64),

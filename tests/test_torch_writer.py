@@ -387,11 +387,44 @@ def test_second_detached_and_foreign_writers_refuse():
     assert TEngine(hidx).writer is None
 
 
-def test_journal_is_refused_until_durable_storage():
-    _, t = _pair(np.linspace(0, 99, 64))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TWriter(t, journal=object())
-    assert t.staging is None
+def test_journal_is_refused_until_durable_storage(tmp_path):
+    # the name is the one this test had while the journal was refused;
+    # durable storage has landed, so it now holds the journal's contract:
+    # a journaled writer appends each record before it stages, and a
+    # failed append leaves nothing staged
+    from repro.checkpointing.wal import Journal as JJournal
+    from repro_torch.checkpointing.wal import Journal as TJournal
+    rng = np.random.default_rng(59)
+    j, t = _pair(np.sort(rng.uniform(0, 100, 200)))
+    jw = JWriter(j, journal=JJournal(tmp_path / "j", 4, sync=False))
+    tw = TWriter(t, journal=TJournal(tmp_path / "t", 4, sync=False))
+    assert t.staging is tw and tw.journal.last_seqno == 0
+    for v in rng.uniform(0, 120, 20):
+        assert jw.write(float(v)) == tw.write(float(v))
+        assert tw.journal.last_seqno == tw.stats.staged
+    assert jw.delete(10.0, 20.0) == tw.delete(10.0, 20.0)
+    bounds = np.linspace(-1.0, 121.0, 33)
+    jw.schedule_resummarize(bounds)
+    tw.schedule_resummarize(bounds)
+    _assert_writer_equal(jw, tw)
+    recs = tw.journal.replay()
+    assert [r.kind for r in recs] == [1] * 20 + [2, 3]
+    for f in sorted((tmp_path / "j" / "wal").iterdir()):
+        assert f.read_bytes() == (tmp_path / "t" / "wal" / f.name).read_bytes()
+    depth, pages = tw.queue_depth, t.table.num_pages
+    for call in (lambda w: w.write(50.0), lambda w: w.delete(0.0, 100.0),
+                 lambda w: w.schedule_resummarize(bounds)):
+        tfi.crash_points.reset()
+        tfi.crash_points.arm("wal.pre_append")
+        try:
+            with pytest.raises(tfi.InjectedCrash):
+                call(tw)
+        finally:
+            tfi.crash_points.reset()
+    assert (tw.queue_depth, t.table.num_pages, t.table.num_dirty) == \
+        (depth, pages, j.table.num_dirty)
+    assert tw.journal.last_seqno == 22
+    _assert_writer_equal(jw, tw)
 
 
 # ---------------------------------------------------------------------------
