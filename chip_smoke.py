@@ -73,6 +73,35 @@ each of which exits nonzero on failure:
    times, the model's segments and error, the buckets the build sample
    occupies under the learned and the equal-mass bounds, and q/s. The index
    is freed when the phase ends.
+   2g. The paper's comparisons (Figures 6 and 7) on ``l_shipdate`` of phase
+   2b's Lineitem, with the counters set to 0 just before and read just
+   after (run after 2e, before 2f): ``HippoIndex.create`` (H=400, D=0.2,
+   4,096 spare pages), the device ``BPlusTree.bulk_load`` (fanout 256) and
+   ``MinMaxIndex.build`` at 1 and 128 pages a range, each timed; the
+   ``nbytes`` of each (the tree's must be 726,415,704 B at SF10, with
+   234,321, 916, 4 and 1 nodes a level) and the device bytes each holds;
+   the windows ``selectivity_window(sf)`` for sf in 1e-5 .. 1e-1, each
+   timed as a median of 16 through Hippo ``search``, the tree's
+   ``count_range`` and ``range_search``, min-max and the full scan, every
+   count equal to brute force on the card and every ``range_search`` equal
+   to the brute-force tids as a set; then 64 eager Hippo inserts and an
+   ``insert_batch`` of the first 8,192 shipdates of a TPC-H RF1 refresh,
+   and the same 8,192 through per-key tree inserts (node reads, writes and
+   splits beside the cost model's I/Os); 16 windows of the same form exact
+   again on both; 4 windows whose lower bound is a key, where every row the
+   tree misses must have that key (the reference's descent, reproduced);
+   one inserted key in 64 deleted. A ``baselines`` JSON line carries it
+   all with the phase's seconds and peak device memory; the bucket probe,
+   the single-query filter and the inspection must have launched.
+   2h. HippoKV on a decode cache of Llama-3-8B's KV widths (B=1, 32,768
+   positions, 8 heads of 128; keys clustered by page from ``--seed``):
+   ``build_kv_index`` at the default ``KVIndexConfig`` and at 16 channels,
+   32 buckets, 8 kept, each build launching the bucket probe once per
+   channel; ``query_page_mask`` at ``min_channels`` 1 and 4 and
+   ``hippo_kv_attention`` timed; attention with every page kept equal to
+   float64 softmax attention within 1e-5. A ``kv`` JSON line carries the
+   times, the pruned share, the kept mass and the index bytes against the
+   cache's.
    2f. Durability on phase 2's index as 2c and 2d left it, with the counters
    set to 0 just before and read just after, in a fresh temporary
    directory (its filesystem and free bytes are printed; it is removed at
@@ -165,6 +194,23 @@ DURABLE_ROUNDS = 4               # ... in rounds of writes then one batch
 CRASH_WRITES = 512               # staged before each injected crash
 SWEEP_ROWS_DIVISOR = 100         # the site sweep's depth: SF10 / 100
 SWEEP_WRITES = 36                # acknowledged writes per swept site
+QUERY_ITERS = 16                 # phase 2g: each query timed as a median
+SELECTIVITIES = (1e-5, 1e-4, 1e-3, 1e-2, 1e-1)   # Fig. 7's windows
+MINMAX_PPR = (1, 128)            # pages per min-max range; 128 is BRIN's
+BASELINE_SPARE_PAGES = 4096      # as bench_fig6_overhead.py's insert table
+BASELINE_INSERTS = 8192          # phase 2g's inserts: RF1's first 8,192
+DELETE_EVERY = 64                # then one inserted key in 64 deleted
+AFTER_INSERT_QUERIES = 16
+FAULT_WINDOWS = 4                # ten-day windows whose lower bound is a key
+# The B+-tree at SF10, fanout 256, by the reference's accounting: 234,321
+# leaves, then 916, 4 and 1 internal nodes
+BTREE_SF10_BYTES = 726_415_704
+BTREE_SF10_NODES = (234_321, 916, 4, 1)
+KV_SHAPE = (1, 32_768, 8, 128)   # Llama-3-8B's KV heads, 32K positions
+# KVIndexConfig at its defaults (= num_channels=8, resolution=16,
+# keep_buckets=4) and a finer one
+KV_CONFIGS = ({}, {"num_channels": 16, "resolution": 32, "keep_buckets": 8})
+KV_ATOL = 1e-5
 # Crash site -> the durable engine whose commit path runs it (the sweep of
 # the reference's tests/test_fault_recovery.py)
 SITE_CONFIG = {
@@ -340,6 +386,13 @@ def main() -> int:
     # -- 2e. learned summaries on l_quantity -----------------------------------
     learned_phase(torch, args, K, intervals, Predicate, QueryEngine,
                   PagedTable, ShardedHippoIndex, dense["li"])
+
+    # -- 2g. the paper's comparisons: B+-tree, min-max, full scan -------------
+    baselines_phase(torch, args, K, intervals, Predicate, PagedTable,
+                    dense["li"])
+
+    # -- 2h. HippoKV on a decode cache ----------------------------------------
+    kv_phase(torch, args, K)
     del dense["li"]
 
     # -- 2f. durability on the mutated sharded index ---------------------------
@@ -1436,6 +1489,323 @@ def learned_phase(torch, args, K, intervals, Predicate, QueryEngine,
     print(f"learned checked: {len(preds)} counts x 2 engines and row ids "
           f"equal brute force, before and after the learned refit")
     del lidx, eng, table, svals, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def median_ms(torch, fn, iters: int = QUERY_ITERS) -> tuple[float, object]:
+    """Median wall ms of ``iters`` calls of ``fn``, each ending in
+    ``torch.cuda.synchronize()``, and the last call's result."""
+    lat = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+    return 1e3 * float(np.median(lat)), out
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def baselines_phase(torch, args, K, intervals, Predicate, PagedTable,
+                    li) -> None:
+    """Phase 2g: the paper's comparisons (Figures 6 and 7) on l_shipdate of
+    phase 2b's Lineitem: Hippo, the device B+-tree, min-max at 1 and 128
+    pages a range and the full scan; build, storage, queries at five
+    selectivities and inserts, every answer against brute force."""
+    import gc
+    from repro_torch.core import cost
+    from repro_torch.core.baselines import BPlusTree, FullScan, MinMaxIndex
+    from repro_torch.core.hippo import HippoIndex
+    from repro_torch.storage import tpch
+    card = li.card
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t_phase = time.perf_counter()
+
+    # -- init (Fig. 6b) and storage (Fig. 6a)
+    table = PagedTable.from_values(li.shipdate, page_card=PAGE_CARD,
+                                   spare_pages=BASELINE_SPARE_PAGES)
+    t = time.perf_counter()
+    hidx = HippoIndex.create(table, resolution=RESOLUTION, density=DENSITY)
+    torch.cuda.synchronize()
+    init_s = {"hippo": time.perf_counter() - t}
+    dev = hidx.device
+    keys, valid = table.device_keys(device=dev), table.device_valid(device=dev)
+    t = time.perf_counter()
+    tree = BPlusTree.bulk_load(li.shipdate, PAGE_CARD)
+    torch.cuda.synchronize()
+    init_s["btree"] = time.perf_counter() - t
+    if tree.device != dev:
+        fail(f"the B+-tree's pools are on {tree.device}, not on {dev}")
+    minmax = {}
+    for ppr in MINMAX_PPR:
+        t = time.perf_counter()
+        minmax[ppr] = MinMaxIndex.build(keys, valid, ppr)
+        torch.cuda.synchronize()
+        init_s[f"minmax_ppr{ppr}"] = time.perf_counter() - t
+    nbytes = {"hippo": hidx.nbytes(), "hippo_rle": hidx.nbytes(compressed=True),
+              "btree": tree.nbytes(),
+              **{f"minmax_ppr{p}": m.nbytes() for p, m in minmax.items()},
+              "fullscan": FullScan.nbytes()}
+    if card == SF10_ROWS and (tree.nbytes(), tree.num_nodes()) != \
+            (BTREE_SF10_BYTES, BTREE_SF10_NODES):
+        fail(f"B+-tree at SF10: {tree.nbytes():,} B, nodes "
+             f"{tree.num_nodes()} != {BTREE_SF10_BYTES:,} B, "
+             f"{BTREE_SF10_NODES}")
+    device_bytes = {
+        "table_views": tensor_bytes(keys, valid),
+        "hippo_state": tensor_bytes(*hidx.state),
+        "btree": tree.device_nbytes(),
+        **{f"minmax_ppr{p}": tensor_bytes(m.mins, m.maxs)
+           for p, m in minmax.items()}}
+
+    def brute(k, v, lo, hi):
+        return v & (k >= lo) & (k <= hi)
+
+    def tids_of(mask):
+        page, slot = mask.nonzero(as_tuple=True)
+        return (page.to(torch.int64) << 16) | slot
+
+    # -- queries (Fig. 7)
+    queries = []
+    for sf in SELECTIVITIES:
+        wlo, whi = tpch.selectivity_window(sf)
+        pred = Predicate.between(wlo, whi)
+        lo, hi = (x[0] for x in intervals([pred], dev))
+        mask = brute(keys, valid, lo, hi)
+        want = int(mask.sum())
+        row = {"sf": sf, "window": [wlo, whi], "count": want,
+               "model_tuples": cost.query_time_tuples(sf, RESOLUTION,
+                                                      DENSITY, card)}
+        row["hippo_ms"], res = median_ms(torch, lambda: hidx.search(pred))
+        row["hippo_pages"] = int(res.pages_inspected)
+        r0 = tree.io.node_reads
+        row["btree_count_ms"], got = median_ms(
+            torch, lambda: tree.count_range(wlo, whi))
+        row["btree_node_reads"] = (tree.io.node_reads - r0) // QUERY_ITERS
+        row["btree_search_ms"], tids = median_ms(
+            torch, lambda: tree.range_search(wlo, whi))
+        row["btree_tids"] = tids.numel()
+        counts = {"hippo": int(res.count), "btree": got,
+                  "btree_search": tids.numel()}
+        if not torch.equal(tids.sort().values, tids_of(mask).sort().values):
+            fail(f"B+-tree range_search at sf={sf}: tids differ from brute "
+                 f"force")
+        for ppr, mm in minmax.items():
+            row[f"minmax_ppr{ppr}_ms"], (c, pages) = median_ms(
+                torch, lambda mm=mm: mm.search(keys, valid, wlo, whi))
+            row[f"minmax_ppr{ppr}_pages"] = int(pages)
+            counts[f"minmax_ppr{ppr}"] = int(c)
+        row["fullscan_ms"], (c, _) = median_ms(
+            torch, lambda: FullScan.search(keys, valid, wlo, whi))
+        counts["fullscan"] = int(c)
+        bad = {k: v for k, v in counts.items() if v != want}
+        if bad:
+            fail(f"baselines at sf={sf}: {bad} != brute force {want}")
+        queries.append(row)
+
+    # -- maintenance (Fig. 6c)
+    new = tpch.generate_lineitem(RF1_ROWS, seed=7).shipdate[:BASELINE_INSERTS]
+    lat = []
+    for v in new[:EAGER_INSERTS]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hidx.insert(float(v))
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hidx.insert_batch(new)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t
+    io0 = dataclasses.replace(tree.io)
+    rows = card + np.arange(new.size)
+    new_tids = (rows // PAGE_CARD) << 16 | rows % PAGE_CARD
+    blat = []
+    t_all = time.perf_counter()
+    for v, tid in zip(new.tolist(), new_tids.tolist()):
+        t = time.perf_counter()
+        tree.insert(v, tid)
+        torch.cuda.synchronize()
+        blat.append(time.perf_counter() - t)
+    btree_insert_s = time.perf_counter() - t_all
+    io1 = tree.io
+    d_reads, d_writes, d_splits = (io1.node_reads - io0.node_reads,
+                                   io1.node_writes - io0.node_writes,
+                                   io1.node_splits - io0.node_splits)
+
+    # 16 queries again, both structures against brute force: the five
+    # windows above and more of their form (a half-day lower bound, as
+    # selectivity_window gives)
+    rng = np.random.default_rng(args.seed + 6)
+    windows = [tpch.selectivity_window(sf) for sf in SELECTIVITIES]
+    while len(windows) < AFTER_INSERT_QUERIES:
+        lo = float(rng.integers(0, SHIPDATE_DAYS)) + 0.5
+        windows.append((lo, lo + float(WIDTHS[len(windows) % 3])))
+    hkeys = hidx.table.device_keys(device=dev)
+    hvalid = hidx.table.device_valid(device=dev)
+    new_dev = torch.from_numpy(new).to(dev)
+    new_tids_dev = torch.from_numpy(new_tids).to(dev)
+
+    def tree_brute(lo, hi):
+        hit = (new_dev >= lo) & (new_dev <= hi)
+        return torch.cat([tids_of(brute(keys, valid, lo, hi)),
+                          new_tids_dev[hit]]).sort().values
+
+    for wlo, whi in windows:
+        pred = Predicate.between(wlo, whi)
+        lo, hi = (x[0] for x in intervals([pred], dev))
+        want_h = int(brute(hkeys, hvalid, lo, hi).sum())
+        want_tids = tree_brute(lo, hi)
+        got_h = int(hidx.search(pred).count)
+        got_b = tree.count_range(wlo, whi)
+        tids = tree.range_search(wlo, whi)
+        if (got_h, got_b) != (want_h, want_tids.numel()) or not torch.equal(
+                tids.sort().values, want_tids):
+            fail(f"after inserts, window [{wlo}, {whi}]: hippo {got_h} vs "
+                 f"{want_h}, B+-tree {got_b} ({tids.numel()} tids) vs "
+                 f"{want_tids.numel()}")
+    # The reference's range_search descends with side="right" on lo, so the
+    # copies of a key lo that lie in leaves before the descent's leaf are
+    # lost (reproduced for parity, ROADMAP.md queue 3). On windows whose
+    # lower bound is a key, every row the tree misses must have key lo.
+    lost = []
+    for d in rng.integers(0, SHIPDATE_DAYS, FAULT_WINDOWS).tolist():
+        wlo, whi = float(d), float(d) + 9.0
+        pred = Predicate.between(wlo, whi)
+        lo, hi = (x[0] for x in intervals([pred], dev))
+        want_tids = tree_brute(lo, hi)
+        tids = tree.range_search(wlo, whi).sort().values
+        missing = want_tids[~torch.isin(want_tids, tids)]
+        at_lo = tree_brute(lo, lo)
+        if not bool(torch.isin(tids, want_tids).all()) or not bool(
+                torch.isin(missing, at_lo).all()) or \
+                int(hidx.search(pred).count) != int(
+                    brute(hkeys, hvalid, lo, hi).sum()):
+            fail(f"window [{wlo}, {whi}]: the B+-tree's answer is not brute "
+                 f"force less copies of lo, or Hippo's count differs")
+        lost.append({"window": [wlo, whi], "brute": want_tids.numel(),
+                     "btree": tids.numel(), "copies_of_lo": at_lo.numel()})
+    deleted = sum(tree.delete(float(v)) for v in new[::DELETE_EVERY])
+    launches = K.launch_counts()
+    print("baselines: " + json.dumps({
+        "rows": card, "page_card": PAGE_CARD, "resolution": RESOLUTION,
+        "density": DENSITY, "btree_fanout": tree.fanout,
+        "btree_nodes_per_level": tree.num_nodes(),
+        "btree_height": tree.height, "hippo_entries": hidx.num_entries,
+        "init_s": init_s, "nbytes": nbytes,
+        "bytes_per_tuple": {k: v / card for k, v in nbytes.items()},
+        "btree_over_hippo": nbytes["btree"] / nbytes["hippo"],
+        "btree_over_hippo_rle": nbytes["btree"] / nbytes["hippo_rle"],
+        "device_bytes": device_bytes, "queries": queries,
+        "inserts": {
+            "rows": int(new.size),
+            "hippo_eager_ms_median": 1e3 * float(np.median(lat)),
+            "hippo_eager": len(lat), "hippo_batch_s": batch_s,
+            "hippo_batch_rows_per_s": new.size / batch_s,
+            "btree_us_median": 1e6 * float(np.median(blat)),
+            "btree_us_mean": 1e6 * btree_insert_s / new.size,
+            "btree_node_reads": d_reads, "btree_node_writes": d_writes,
+            "btree_node_splits": d_splits,
+            "btree_ios_per_insert": (d_reads + d_writes) / new.size,
+            "model_hippo_ios_per_insert": cost.insert_time_ios(
+                card, RESOLUTION, DENSITY),
+            "model_btree_ios_per_insert": cost.btree_insert_time_ios(card)},
+        "queries_after_inserts": len(windows),
+        "btree_integer_lo_windows": lost,
+        "deletes": int(new[::DELETE_EVERY].size), "deleted_true": deleted,
+        "btree_device_bytes_after": tree.device_nbytes(),
+        "launches": launches, "phase_s": time.perf_counter() - t_phase,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "phase_memory_above_start": torch.cuda.max_memory_allocated()
+        - base_mem}))
+    for name in ("bucketize", "bitmap_and", "page_inspect"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched in the baselines phase")
+    print(f"baselines checked: {len(SELECTIVITIES)} windows x 6 structures "
+          f"and {len(windows)} windows after the inserts equal brute force")
+    del hidx, tree, minmax, table, keys, valid, hkeys, hvalid
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kv_phase(torch, args, K) -> None:
+    """Phase 2h: HippoKV on a decode cache at Llama-3-8B's KV widths."""
+    import gc
+    from repro_torch.core import kvindex as kv
+    from repro_torch.device import resolve_device
+    if torch.get_float32_matmul_precision() != "highest":
+        fail("float32 matmul precision is not 'highest'")
+    t_phase = time.perf_counter()
+    b, s, h, hd = KV_SHAPE
+    ps = kv.KVIndexConfig().page_size
+    rng = np.random.default_rng(args.seed + 7)
+    centers = rng.standard_normal((s // ps, 1, h, hd), dtype=np.float32)
+    keys = np.repeat(centers, ps, axis=0).reshape(b, s, h, hd)
+    keys = keys + np.float32(0.3) * rng.standard_normal((b, s, h, hd),
+                                                        dtype=np.float32)
+    values = rng.standard_normal((b, s, h, hd), dtype=np.float32)
+    q = rng.standard_normal((b, h, hd), dtype=np.float32)
+    dev = resolve_device(None)
+    dk, dv, dq = (torch.from_numpy(x).to(dev) for x in (keys, values, q))
+    cache_bytes = tensor_bytes(dk, dv)
+    # exact softmax attention in float64, the check's yardstick
+    scores = torch.einsum("bhd,bshd->bhs", dq.double(), dk.double())
+    exact = torch.einsum("bhs,bshd->bhd",
+                         torch.softmax(scores / math.sqrt(hd), dim=-1),
+                         dv.double())
+    runs = []
+    for cfg in KV_CONFIGS:
+        cfg = kv.KVIndexConfig(**cfg)
+        kv.build_kv_index(cfg, dk)              # warm-up
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        idx = kv.build_kv_index(cfg, dk)
+        torch.cuda.synchronize()
+        build_ms = 1e3 * (time.perf_counter() - t)
+        launches = K.launch_counts()["bucketize"]
+        if launches != cfg.num_channels:
+            fail(f"kvindex build launched the bucket probe {launches} times, "
+                 f"not once per channel ({cfg.num_channels})")
+        row = {"config": dataclasses.asdict(cfg), "build_ms": build_ms,
+               "bucketize_launches": launches, "index_bytes": idx.nbytes(),
+               "index_over_cache": idx.nbytes() / cache_bytes}
+        for mc in (1, 4):
+            row[f"mask_ms_min{mc}"], mask = median_ms(
+                torch, lambda mc=mc: kv.query_page_mask(idx, dq, mc))
+            row[f"pruned_share_min{mc}"] = 1.0 - float(mask.float().mean())
+            ms, (out, mass) = median_ms(torch, lambda m=mask: kv.
+                                        hippo_kv_attention(dq, dk, dv, m, ps))
+            row[f"attention_ms_min{mc}"] = ms
+            row[f"kept_mass_min{mc}"] = {"mean": float(mass.mean()),
+                                         "min": float(mass.min())}
+            row[f"rel_err_min{mc}"] = float(
+                (out.double() - exact).norm() / exact.norm())
+        all_pages = torch.ones_like(mask)
+        ms, (out, mass) = median_ms(torch, lambda: kv.hippo_kv_attention(
+            dq, dk, dv, all_pages, ps))
+        err = float((out.double() - exact).abs().max())
+        if err > KV_ATOL or float((mass - 1).abs().max()) > KV_ATOL:
+            fail(f"full-keep attention differs from exact attention by "
+                 f"{err} (kept mass {float(mass.min())})")
+        row["attention_ms_all_pages"] = ms
+        row["full_keep_max_abs_err"] = err
+        runs.append(row)
+    print("kv: " + json.dumps({
+        "shape": {"batch": b, "positions": s, "heads": h, "head_dim": hd},
+        "cache_bytes": cache_bytes, "runs": runs,
+        "phase_s": time.perf_counter() - t_phase,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}))
+    print(f"kv checked: full-keep attention equals exact attention "
+          f"(atol {KV_ATOL}) for {len(runs)} configurations")
+    del dk, dv, dq, exact, scores
     gc.collect()
     torch.cuda.empty_cache()
 

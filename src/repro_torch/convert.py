@@ -22,14 +22,23 @@ Keys of ``arrays``:
                     optional (sharded only): the per-shard bounds epochs of
                     a remapped index and its summary policy; absent, every
                     shard is at epoch 0 under "equal_mass"
+
+The comparison surfaces cross the same way: ``btree_from_reference`` walks a
+reference ``BPlusTree``'s nodes (read by attribute: ``root``, ``fanout``,
+``io``, ``num_keys``; each node's ``leaf``, ``keys``, ``children``, ``ptrs``,
+``next``) into the port's pools with its counters; ``minmax_from_arrays``
+and ``kvindex_from_arrays`` take the reference's arrays.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.baselines.btree import BPlusTree, IOCounters
+from repro_torch.core.baselines.minmax import MinMaxIndex
 from repro_torch.core.hippo import HippoIndex
 from repro_torch.core.index import HippoConfig, HippoState
+from repro_torch.core.kvindex import KVIndex, KVIndexConfig
 from repro_torch.core.partition import (ShardedHippoIndex, ShardedHippoState,
                                         ShardSpec)
 from repro_torch.device import resolve_device
@@ -99,3 +108,53 @@ def hippo_index_from_arrays(arrays: dict, device=None) -> HippoIndex:
                          f"{cfg.max_slots} slots")
     return HippoIndex(cfg=cfg, state=state, table=_table(arrays, cfg.page_card),
                       device=dev)
+
+
+def btree_from_reference(tree, device=None) -> BPlusTree:
+    """A port ``BPlusTree`` on ``device`` (None: the card) with the
+    reference tree's nodes, leaf chain, counters and key count."""
+    levels = [[tree.root]]
+    while not levels[-1][0].leaf:
+        levels.append([c for node in levels[-1] for c in node.children])
+    leaves = levels.pop()
+    leaf_id = {id(node): i for i, node in enumerate(leaves)}
+    leaf_next = np.array([leaf_id[id(node.next)] if node.next is not None
+                          else -1 for node in leaves], np.int64)
+    rows, below = [], leaf_id
+    for level in reversed(levels):
+        rows.append([(np.asarray(node.keys, np.float64),
+                      np.array([below[id(c)] for c in node.children],
+                               np.int64)) for node in level])
+        below = {id(node): i for i, node in enumerate(level)}
+    io = tree.io
+    return BPlusTree.from_rows(
+        tree.fanout, [(np.asarray(n.keys, np.float64),
+                       np.asarray(n.ptrs, np.int64)) for n in leaves],
+        leaf_next, rows,
+        IOCounters(io.node_reads, io.node_writes, io.node_splits),
+        tree.num_keys, device=device)
+
+
+def minmax_from_arrays(mins, maxs, pages_per_range: int,
+                       device=None) -> MinMaxIndex:
+    """A port ``MinMaxIndex`` on ``device`` (None: the card) with the given
+    per-range float32 mins and maxs."""
+    dev = resolve_device(device)
+    return MinMaxIndex(pages_per_range=int(pages_per_range),
+                       mins=_tensor(np.asarray(mins, np.float32), dev),
+                       maxs=_tensor(np.asarray(maxs, np.float32), dev))
+
+
+def kvindex_from_arrays(cfg, channels, bounds, bitmaps,
+                        device=None) -> KVIndex:
+    """A port ``KVIndex`` on ``device`` (None: the card): ``cfg`` any object
+    with the ``KVIndexConfig`` fields, channels (C,) int32, bounds (C, R+1)
+    float32, bitmaps (B, H, P, C, W) uint32 (carried as int32 bits)."""
+    dev = resolve_device(device)
+    cfg = KVIndexConfig(page_size=int(cfg.page_size),
+                        num_channels=int(cfg.num_channels),
+                        resolution=int(cfg.resolution),
+                        keep_buckets=int(cfg.keep_buckets))
+    return KVIndex(cfg, _tensor(np.asarray(channels, np.int32), dev),
+                   _tensor(np.asarray(bounds, np.float32), dev),
+                   _tensor(np.asarray(bitmaps, np.uint32), dev))

@@ -40,12 +40,11 @@ class Histogram:
         return self.bounds.shape[0] - 1
 
 
-def _jnp_quantile(sample: np.ndarray, resolution: int) -> np.ndarray:
-    """``jnp.quantile(sample, jnp.linspace(0, 1, H+1))`` for a float32 sample
-    without NaNs, as XLA:CPU computes it (float32 result)."""
+def _quantile_weights(n: int, resolution: int) -> tuple:
+    """The gather indices and float32 weights of ``jnp.quantile`` at
+    ``jnp.linspace(0, 1, H+1)`` over ``n`` sorted values, as XLA:CPU
+    computes them: (lo_i, hi_i int64, lw, hw float32), each (H+1,)."""
     f32 = np.float32
-    a = np.sort(np.asarray(sample, f32).ravel())
-    n = a.size
     # jnp.linspace(0, 1, H+1) == iota * f32(1/H) (XLA folds the divide)
     qs = np.arange(resolution + 1, dtype=f32) * f32(1.0 / resolution)
     q = qs * f32(n - 1)
@@ -53,8 +52,16 @@ def _jnp_quantile(sample: np.ndarray, resolution: int) -> np.ndarray:
     high = np.ceil(q)
     hw = (q - low).astype(f32)
     lw = (f32(1.0) - hw).astype(f32)
-    lo_i = np.clip(low, 0, n - 1).astype(np.int64)
-    hi_i = np.clip(high, 0, n - 1).astype(np.int64)
+    return (np.clip(low, 0, n - 1).astype(np.int64),
+            np.clip(high, 0, n - 1).astype(np.int64), lw, hw)
+
+
+def _jnp_quantile(sample: np.ndarray, resolution: int) -> np.ndarray:
+    """``jnp.quantile(sample, jnp.linspace(0, 1, H+1))`` for a float32 sample
+    without NaNs, as XLA:CPU computes it (float32 result)."""
+    f32 = np.float32
+    a = np.sort(np.asarray(sample, f32).ravel())
+    lo_i, hi_i, lw, hw = _quantile_weights(a.size, resolution)
     lo_term = (a[lo_i] * lw).astype(f32)
     # fma(a[hi], hw, lo_term): the f32 product is exact in float64
     return (a[hi_i].astype(np.float64) * hw.astype(np.float64)

@@ -14,6 +14,7 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
+from repro_torch.core.baselines import BPlusTree, FullScan, MinMaxIndex
 from repro_torch.core.hippo import HippoIndex
 from repro_torch.core.partition import ShardedHippoIndex
 from repro_torch.core.predicate import Predicate
@@ -722,6 +723,119 @@ def test_save_and_load_on_card(tmp_path):
     on_cpu = ShardedHippoIndex.load(tmp_path, device="cpu")
     assert all(torch.equal(x.cpu(), y) for x, y in
                zip(back.state.shards, on_cpu.state.shards))
+
+
+def _btree_stream(dev: str) -> list:
+    """A B+-tree on ``dev`` after bulk load, inserts (leaf, internal and root
+    splits), deletes and searches; returns every answer, the counters, the
+    structure and the leaf pools."""
+    rng = np.random.default_rng(12)
+    vals = rng.integers(0, 300, 20_000).astype(np.float32)
+    vals[::97] = -0.0
+    vals[::131] = np.nan
+    tree = BPlusTree.bulk_load(vals, 50, fanout=16, device=dev)
+    out = []
+    for i in range(1500):
+        k = float(rng.integers(-5, 310)) + (0.5 if i % 7 == 0 else 0.0)
+        tree.insert(k, 1_000_000 + i)
+        if i % 5 == 0:
+            out.append(tree.delete(float(rng.integers(0, 300))))
+        if i % 50 == 0:
+            lo = float(rng.integers(0, 300)) - 0.25
+            out.append(tree.range_search(lo, lo + 9).cpu().tolist())
+            out.append(tree.count_range(lo, lo + 9))
+    out.append((tree.io.node_reads, tree.io.node_writes,
+                tree.io.node_splits, tree.nbytes(), tree.num_keys,
+                tree.num_nodes()))
+    st = tree.structure()
+    out.append([[k.view(np.int64).tolist() for k in lvl]
+                for lvl in st["internal"]])
+    out.append([(k.view(np.int64).tolist(), t.tolist())
+                for k, t in st["leaves"]])
+    n = tree.num_nodes()[0]
+    out.append(tree._lkeys[:n].cpu().numpy().view(np.int64).tolist())
+    out.append(tree._ltids[:n].cpu().numpy().tolist())
+    return out
+
+
+@needs_cuda
+def test_btree_on_card_equals_cpu():
+    assert _btree_stream("cuda") == _btree_stream("cpu")
+
+
+@needs_cuda
+def test_btree_stable_order_on_card_equals_numpy():
+    """The bulk load's stable order against ``np.argsort(kind="stable")``
+    with ties, -0.0/+0.0 mixed and NaN (both signs) on the card."""
+    from repro_torch.core.baselines.btree import _stable_order
+    rng = np.random.default_rng(13)
+    base = np.array([0.0, -0.0, np.nan, -np.nan, 1.0, -1.0, np.inf, -np.inf,
+                     3.5], np.float32)
+    for n in (9, 1000, 300_000):
+        vals = rng.choice(base, n)
+        got = _stable_order(torch.from_numpy(vals).cuda()).cpu().numpy()
+        assert np.array_equal(got, np.argsort(vals, kind="stable"))
+
+
+@needs_cuda
+def test_minmax_and_fullscan_on_card_equal_cpu():
+    rng = np.random.default_rng(14)
+    vals = rng.uniform(0, 1000, 50_000).astype(np.float32)
+    vals[::1001] = np.nan
+    table = PagedTable.from_values(vals, 50)
+    table.delete_where(100.0, 120.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        keys = table.device_keys(device=dev)
+        valid = table.device_valid(device=dev)
+        runs = []
+        for ppr in (1, 3, 128):
+            mm = MinMaxIndex.build(keys, valid, ppr)
+            runs.append((mm.mins.cpu().numpy().view(np.int32).tolist(),
+                         mm.maxs.cpu().numpy().view(np.int32).tolist()))
+            for lo in (0.1, 99.5, 1277.5000001, 500.0):
+                runs.append([int(x) for x in mm.search(keys, valid, lo,
+                                                       lo + 3.3)])
+        for lo in (0.1, 99.5, 1277.5000001, 500.0):
+            runs.append([int(x) for x in FullScan.search(keys, valid, lo,
+                                                         lo + 3.3)])
+        out[dev] = runs
+    assert out["cuda"] == out["cpu"]
+
+
+@needs_cuda
+def test_kvindex_on_card_equals_cpu_through_the_bucket_probe():
+    from repro_torch import kernels as K
+    from repro_torch.core import kvindex as kv
+    rng = np.random.default_rng(15)
+    centers = rng.standard_normal((64, 1, 4, 64)).astype(np.float32)
+    keys = (np.repeat(centers, 64, axis=0).reshape(1, 4096, 4, 64)
+            + 0.3 * rng.standard_normal((1, 4096, 4, 64))).astype(np.float32)
+    values = rng.standard_normal((1, 4096, 4, 64)).astype(np.float32)
+    q = rng.standard_normal((1, 4, 64)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = kv.KVIndexConfig(num_channels=8, resolution=16)
+        K.reset_launch_counts()
+        idx = kv.build_kv_index(cfg, keys, device=dev)
+        launches = K.launch_counts()["bucketize"]
+        assert launches == (8 if dev == "cuda" else 0)
+        runs = [idx.channels.cpu().tolist(),
+                idx.bounds.cpu().numpy().view(np.int32).tolist(),
+                idx.bitmaps.cpu().tolist()]
+        tq = torch.from_numpy(q).to(dev)
+        for mc in (1, 2, 4):
+            runs.append(kv.query_page_mask(idx, tq, mc).cpu().tolist())
+        mask = kv.query_page_mask(idx, tq, 2)
+        o, m = kv.hippo_kv_attention(tq, torch.from_numpy(keys).to(dev),
+                                     torch.from_numpy(values).to(dev),
+                                     mask, 64)
+        out[dev] = (runs, o.cpu(), m.cpu())
+    assert out["cuda"][0] == out["cpu"][0]
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-5,
+                               atol=1e-6)
 
 
 @needs_cuda
