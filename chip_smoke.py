@@ -102,6 +102,33 @@ each of which exits nonzero on failure:
    float64 softmax attention within 1e-5. A ``kv`` JSON line carries the
    times, the pruned share, the kept mass and the index bytes against the
    cache's.
+   2i. The model-serving path (run after 2h, before 2f), with the counters
+   set to 0 just before and read just after (it runs no Hippo kernel:
+   attention, MoE and the recurrences are plain PyTorch, as the reference's
+   are plain ``jnp``): ``smollm-360m`` at its published widths and full
+   depth (32 layers, d=960, ~409 M parameters) in bfloat16 from a seeded
+   generator on the card; the port's ``BatchServer`` serves 16 requests of
+   256 prompt tokens at batch 8, 64 tokens each, every token in [0, V). A
+   ``serve`` JSON line carries tokens/s, the median prefill ms per request,
+   the median decode-step ms and the peak device memory. Then, in float32
+   with TF32 off, a batch of 2: prefill of all but the last 3 positions and
+   3 decode steps, each step's logits against the teacher-forced forward
+   within atol = rtol = 1e-3, for smollm at full depth over 16 positions
+   and for one pattern unit of every other block family at its published
+   widths (qwen2-moe with capacity factor 8, recurrentgemma over 2,304
+   positions so that its 2,048-token rolling buffer wraps, rwkv6, qwen2-vl,
+   musicgen, stablelm); a ``serve check`` line carries each max error.
+   2j. Placement, with the counters set to 0 before and read after each
+   placement: phase 2's sharded index as 2c and 2d left it, placed with
+   ``place_sharded`` on ``make_shard_mesh(4)`` (one card: plain tensors, the
+   unplaced path) and on a 4-entry mesh of the card (each shard block
+   searched where it lives, results summed on the first); phase 2's 256
+   predicates in batches of 64 through ``search_many_sharded`` and the
+   compact search (top_k=32), every field equal to the unplaced call's and
+   the counts and row ids to brute force; one batch timed for each
+   placement and unplaced; ``reshard_for_mesh`` of a seeded tree onto
+   meshes of 8 and 2 entries, block sums exact and block counts as the
+   specs give. A ``placement`` JSON line carries it.
    2f. Durability on phase 2's index as 2c and 2d left it, with the counters
    set to 0 just before and read just after, in a fresh temporary
    directory (its filesystem and free bytes are printed; it is removed at
@@ -211,6 +238,22 @@ KV_SHAPE = (1, 32_768, 8, 128)   # Llama-3-8B's KV heads, 32K positions
 # keep_buckets=4) and a finer one
 KV_CONFIGS = ({}, {"num_channels": 16, "resolution": 32, "keep_buckets": 8})
 KV_ATOL = 1e-5
+# Phase 2i: the serving run and the decode-against-forward checks
+SERVE_ARCH = "smollm-360m"
+SERVE_REQUESTS = 16
+SERVE_BATCH = 8
+SERVE_PROMPT = 256
+SERVE_GEN = 64
+CHECK_BATCH = 2
+CHECK_POSITIONS = 16
+CHECK_TOL = 1e-3
+# one pattern unit of every other block family; recurrentgemma's prompt
+# (2,301 tokens) is longer than its 2,048 window, so the rolling buffer wraps
+FAMILY_CHECKS = (("qwen2-moe-a2.7b", CHECK_POSITIONS),
+                 ("recurrentgemma-9b", 2304), ("rwkv6-3b", CHECK_POSITIONS),
+                 ("qwen2-vl-7b", CHECK_POSITIONS),
+                 ("musicgen-large", CHECK_POSITIONS),
+                 ("stablelm-3b", CHECK_POSITIONS))
 # Crash site -> the durable engine whose commit path runs it (the sweep of
 # the reference's tests/test_fault_recovery.py)
 SITE_CONFIG = {
@@ -394,6 +437,12 @@ def main() -> int:
     # -- 2h. HippoKV on a decode cache ----------------------------------------
     kv_phase(torch, args, K)
     del dense["li"]
+
+    # -- 2i. the model-serving path --------------------------------------------
+    serving_phase(torch, args, K)
+
+    # -- 2j. placement of the sharded index on meshes --------------------------
+    placement_phase(torch, K, hix, intervals, sidx, preds)
 
     # -- 2f. durability on the mutated sharded index ---------------------------
     # the phase drops the index (a crash) and hands back the recovered one
@@ -1808,6 +1857,218 @@ def kv_phase(torch, args, K) -> None:
     del dk, dv, dq, exact, scores
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def decode_check(torch, ms, mt, cfg, positions: int, seed: int) -> float:
+    """Prefill of ``positions``-3 tokens, then 3 decode steps, against the
+    teacher-forced forward over all of them (the logits of the positions
+    checked only), float32 with TF32 off; returns the max abs error."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = mt.init_params(cfg, gen, dev)
+    b, s = CHECK_BATCH, positions
+    if cfg.frontend == "tokens":
+        inputs = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device=dev)
+    else:
+        inputs = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    want = mt.trunk(model, inputs, pos)[:, s - 4:] @ mt.lm_head(model)
+    logits, cache = ms.prefill(model, inputs[:, :s - 3], pos[:, :s - 3], s + 4)
+    got = [logits]
+    for t in range(s - 3, s):
+        logits, cache = ms.decode_step(model, cache, inputs[:, t:t + 1], t)
+        got.append(logits)
+    got = torch.stack(got, dim=1)
+    if not torch.isfinite(got).all():
+        fail(f"{cfg.name}: non-finite logits")
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=CHECK_TOL, atol=CHECK_TOL):
+        fail(f"{cfg.name}: decode differs from the forward by {err} "
+             f"(atol = rtol = {CHECK_TOL})")
+    return err
+
+
+def serving_phase(torch, args, K) -> None:
+    """Phase 2i: ``smollm-360m`` at its published widths and full depth in
+    bfloat16 through the port's ``BatchServer``, then the decode-against-
+    forward check in float32 for it and one pattern unit of every other
+    block family at its published widths."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.models import serve as ms
+    from repro_torch.models import transformer as mt
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        fail("TF32 is on for float32 matmuls")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = mt.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(args.seed)
+    queue = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32))
+        for i in range(SERVE_REQUESTS)]
+    server = BatchServer(model, SERVE_BATCH,
+                         max_seq=SERVE_PROMPT + SERVE_GEN + 1)
+    prefill_ms, step_ms, finished = [], [], []
+    t0 = time.perf_counter()
+    while len(finished) < SERVE_REQUESTS:
+        while queue:
+            t = time.perf_counter()
+            if not server.admit(queue[0]):
+                break
+            prefill_ms.append(1e3 * (time.perf_counter() - t))
+            queue.pop(0)
+        t = time.perf_counter()
+        server.step()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        finished.extend(server.retire(SERVE_GEN))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = [tok for r in finished for tok in r.generated]
+    if (len(finished) != SERVE_REQUESTS
+            or any(len(r.generated) != SERVE_GEN for r in finished)
+            or not all(0 <= tok < cfg.vocab_size for tok in tokens)):
+        fail("serving: a request's tokens are missing or out of [0, V)")
+    launches = K.launch_counts()
+    print("serve: " + json.dumps({
+        "arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "params": n_params, "init_s": init_s,
+        "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
+        "prompt": SERVE_PROMPT, "generated": SERVE_GEN,
+        "tokens": len(tokens), "wall_s": wall, "tokens_per_s":
+        len(tokens) / wall, "prefill_ms_median": float(np.median(prefill_ms)),
+        "decode_step_ms_median": float(np.median(step_ms)),
+        "decode_steps": len(step_ms), "hippo_kernel_launches": launches,
+        "resident_before": resident,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}))
+    del model, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    errs = {}
+    checks = [(dataclasses.replace(cfg, dtype="float32"), CHECK_POSITIONS)]
+    for arch, positions in FAMILY_CHECKS:
+        c = get_config(arch)
+        c = dataclasses.replace(c, num_layers=c.unit_len, dtype="float32")
+        if c.num_experts:
+            c = dataclasses.replace(c, capacity_factor=8.0)
+        checks.append((c, positions))
+    for c, positions in checks:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        err = decode_check(torch, ms, mt, c, positions, args.seed)
+        torch.cuda.synchronize()
+        errs[c.name] = {"layers": c.num_layers, "positions": positions,
+                        "max_abs_err": err, "s": time.perf_counter() - t0,
+                        "max_memory_allocated":
+                        torch.cuda.max_memory_allocated()}
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("serve check: " + json.dumps({
+        "batch": CHECK_BATCH, "tol": CHECK_TOL, "archs": errs,
+        "phase_s": time.perf_counter() - t_phase}))
+    print(f"serve checked: decode equals the forward (atol = rtol = "
+          f"{CHECK_TOL}, float32) for {len(errs)} families at published "
+          f"widths")
+
+
+def placement_phase(torch, K, hix, intervals, sidx, preds) -> None:
+    """Phase 2j: the sharded index placed on ``make_shard_mesh(4)`` (one
+    card: plain tensors) and on a 4-entry mesh of the card (each shard block
+    searched where it lives, summed on the first); then ``reshard_for_mesh``
+    of a seeded tree onto meshes of 8 and 2 entries."""
+    from repro_torch.launch.mesh import make_mesh_compat, make_shard_mesh
+    from repro_torch.launch.shardings import P, PlacedTensor, place_sharded
+    from repro_torch.runtime.elastic import reshard_for_mesh
+    t_phase = time.perf_counter()
+    dev = sidx.device
+    keys, valid = sidx._slabs()
+    batches = [preds[i:i + BATCH] for i in range(0, len(preds), BATCH)]
+    args = [(sidx._query_bitmaps(b), *intervals(b, dev)) for b in batches]
+    cap = sidx.gather_cap
+
+    def run(st, k, v, a):
+        qb, lo, hi = a
+        dense = hix.search_many_sharded(st.shards, qb, k, v, lo, hi)
+        compact = hix.search_compact_many_sharded(
+            st.shards, qb, k, v, lo, hi, max_selected=cap, top_k=TOP_K)
+        return [*dense, *compact]
+
+    want = [run(sidx.state, keys, valid, a) for a in args]
+    table = sidx.table
+    keys_all = table.device_keys(device=dev).reshape(-1)
+    valid_all = table.device_valid(device=dev).reshape(-1)
+    counts = torch.cat([w[0] for w in want]).cpu().numpy()
+    row_ids = torch.cat([w[-1] for w in want]).cpu().numpy()
+    los, his = intervals(preds, dev)
+    for q, p in enumerate(preds):
+        hit = valid_all & (keys_all >= los[q]) & (keys_all <= his[q])
+        ids = torch.nonzero(hit)[:TOP_K, 0].cpu().numpy()
+        if int(hit.sum()) != counts[q] or not np.array_equal(
+                row_ids[q][row_ids[q] >= 0], ids):
+            fail(f"placement: the unplaced search of query {q} {p} differs "
+                 f"from brute force")
+    meshes = {"shard_mesh": make_shard_mesh(NUM_SHARDS),
+              "four_entries": make_mesh_compat((NUM_SHARDS,), ("data",),
+                                               [dev] * NUM_SHARDS)}
+    out = {"queries": len(preds), "meshes": {},
+           "unplaced_ms": time_ms(torch, lambda: run(sidx.state, keys, valid,
+                                                     args[0]), 8)}
+    for name, mesh in meshes.items():
+        K.reset_launch_counts()
+        st, k, v = place_sharded(mesh, sidx.state, keys, valid)
+        got = [run(st, k, v, a) for a in args]
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        for b, (g, w) in enumerate(zip(got, want)):
+            for gi, wi in zip(g, w):
+                if not torch.equal(gi, wi):
+                    fail(f"placement on {name}: batch {b} differs from the "
+                         f"unplaced search")
+        for kname in ("batch_filter", "compact_inspect", "page_inspect_many"):
+            if launches[kname] == 0:
+                fail(f"placement on {name}: kernel {kname} was not launched")
+        out["meshes"][name] = {
+            "entries": mesh.size, "placed": isinstance(k, PlacedTensor),
+            "blocks": k.num_blocks if isinstance(k, PlacedTensor) else 1,
+            "ms": time_ms(torch, lambda: run(st, k, v, args[0]), 8),
+            "launches": launches}
+    rng = np.random.default_rng(7)
+    tree = {"w": rng.integers(0, 1000, (4096, 4096)).astype(np.float32),
+            "b": rng.integers(0, 1000, 4096).astype(np.float32)}
+    specs = {"w": P("data", "model"), "b": P("model")}
+    out["reshard"] = {}
+    for shape, blocks in (((4, 2), {"w": 8, "b": 2}),
+                          ((2, 1), {"w": 2, "b": 1})):
+        mesh = make_mesh_compat(shape, ("data", "model"),
+                                [dev] * int(np.prod(shape)))
+        placed = reshard_for_mesh(tree, specs, mesh)
+        for name, arr in placed.items():
+            total = sum(float(arr.block(pos).double().sum())
+                        for _, pos in arr.distinct_blocks())
+            if total != float(tree[name].astype(np.float64).sum()):
+                fail(f"reshard onto {shape}: {name}'s blocks sum to {total}")
+            if arr.num_blocks != blocks[name]:
+                fail(f"reshard onto {shape}: {name} has {arr.num_blocks} "
+                     f"blocks, not {blocks[name]}")
+        out["reshard"][str(shape)] = {n: a.num_blocks
+                                      for n, a in placed.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("placement: " + json.dumps(out))
+    print(f"placement checked: {len(preds)} queries on 1- and "
+          f"{NUM_SHARDS}-entry meshes equal the unplaced search and brute "
+          f"force")
 
 
 def at_offset(torch, t, off: int):

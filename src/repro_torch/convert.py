@@ -28,6 +28,12 @@ reference ``BPlusTree``'s nodes (read by attribute: ``root``, ``fanout``,
 ``io``, ``num_keys``; each node's ``leaf``, ``keys``, ``children``, ``ptrs``,
 ``next``) into the port's pools with its counters; ``minmax_from_arrays``
 and ``kvindex_from_arrays`` take the reference's arrays.
+
+Models cross as their parameter tree: ``model_from_reference`` takes the
+reference's ``init_params`` tree as numpy arrays (nested dicts and lists;
+``units/b{j}_{kind}`` leaves stacked over the units) and returns the port's
+``Transformer`` with one block per layer; ``cache_to_reference`` restacks the
+port's per-layer serving caches into the reference's layout as numpy.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch.core.kvindex import KVIndex, KVIndexConfig
 from repro_torch.core.partition import (ShardedHippoIndex, ShardedHippoState,
                                         ShardSpec)
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import Transformer, layer_kinds
 from repro_torch.storage.table import PagedTable
 
 
@@ -158,3 +165,58 @@ def kvindex_from_arrays(cfg, channels, bounds, bitmaps,
     return KVIndex(cfg, _tensor(np.asarray(channels, np.int32), dev),
                    _tensor(np.asarray(bounds, np.float32), dev),
                    _tensor(np.asarray(bitmaps, np.uint32), dev))
+
+
+def _param(a, dev: torch.device) -> torch.Tensor:
+    """A reference parameter array as a tensor: bfloat16 arrays (numpy's
+    ml_dtypes bfloat16) cross through float32, which holds them exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _tree(node, fn):
+    if isinstance(node, dict):
+        return {k: _tree(v, fn) for k, v in node.items()}
+    return fn(node)
+
+
+def model_from_reference(cfg, params: dict, device=None) -> Transformer:
+    """The port's ``Transformer`` on ``device`` (None: the card) computing
+    what the reference computes with ``params``: ``units/b{j}_{kind}`` is
+    unstacked along its leading axis into layers ``u*unit_len + j``, then
+    ``extra`` follows."""
+    dev = resolve_device(device)
+    kinds = layer_kinds(cfg)
+    blocks = []
+    for i, kind in enumerate(kinds[: cfg.num_units * cfg.unit_len]):
+        u, j = divmod(i, cfg.unit_len)
+        blocks.append(_tree(params["units"][f"b{j}_{kind}"],
+                            lambda a, u=u: _param(np.asarray(a)[u], dev)))
+    for extra in params.get("extra", []):
+        blocks.append(_tree(extra, lambda a: _param(a, dev)))
+    tree = {k: _tree(v, lambda a: _param(a, dev)) for k, v in params.items()
+            if k not in ("units", "extra")}
+    tree["blocks"] = blocks
+    return Transformer(cfg, tree)
+
+
+def cache_to_reference(cfg, cache: list[dict]) -> dict:
+    """The port's per-layer caches restacked as the reference's
+    ``init_cache`` lays them out, as float32 numpy (bfloat16 widened)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    unit_layers = cfg.num_units * cfg.unit_len
+    out = {"units": {}}
+    for j, kind in enumerate(cfg.block_pattern):
+        layers = cache[j:unit_layers:cfg.unit_len]
+        out["units"][f"b{j}_{kind}"] = {
+            name: np.stack([host(c[name]) for c in layers])
+            for name in cache[j]}
+    if cfg.leftover_pattern:
+        out["extra"] = [{name: host(t) for name, t in c.items()}
+                        for c in cache[unit_layers:]]
+    return out

@@ -325,6 +325,71 @@ def search_many(state: HippoState, query_bitmaps: torch.Tensor,
     )
 
 
+# ---------------------------------------------------------------------------
+# Placed slabs (``launch.shardings.place_sharded`` on a mesh of d > 1 entries)
+# ---------------------------------------------------------------------------
+
+def _on_blocks(fn, shards: HippoState, query_bitmaps, keys, valid, los, his,
+               **kw) -> list:
+    """Run the unplaced sharded search ``fn`` once per distinct shard block of
+    placed slabs (``PlacedTensor``s), where the block lives: each placed
+    argument gives its block, a plain one (the (S, Q, W) query bitmaps,
+    los/his) is sliced and copied there. Returns [(first shard, result)] in
+    shard order."""
+    out = []
+    for sl, pos in keys.distinct_blocks():
+        rows = sl[0]
+        dev = keys.block(pos).device
+
+        def block(t):
+            if isinstance(t, torch.Tensor):
+                return t[rows].to(dev)
+            return t.block(pos)
+
+        st = HippoState(*map(block, shards))
+        out.append((rows.start, fn(st, block(query_bitmaps), keys.block(pos),
+                                   valid.block(pos), los.to(dev), his.to(dev),
+                                   **kw)))
+    return out
+
+
+def _total(parts) -> torch.Tensor:
+    """Sum of per-block int32 results on the first block's device (the
+    reference's cross-device psum)."""
+    parts = list(parts)
+    dev = parts[0].device
+    return torch.stack([p.to(dev) for p in parts]).sum(dim=0,
+                                                       dtype=torch.int32)
+
+
+def _compact_on_blocks(shards: HippoState, query_bitmaps, keys, valid, los,
+                       his, *, max_selected: int, top_k: int
+                       ) -> CompactBatchResult:
+    """``search_compact_many_sharded`` over placed slabs: each block's
+    result, combined on the first block's device as the stacked call
+    combines its shards (sums, OR, max; row ids offset by the block's first
+    shard and merged ascending)."""
+    res = _on_blocks(search_compact_many_sharded, shards, query_bitmaps, keys,
+                     valid, los, his, max_selected=max_selected, top_k=top_k)
+    dev = res[0][1].counts.device
+    rows_per_shard = keys.shape[1] * keys.shape[2]
+    gids = [torch.where(r.row_ids >= 0,
+                        r.row_ids.to(dev).long() + s0 * rows_per_shard,
+                        _INT32_MAX) for s0, r in res]
+    merged = torch.cat(gids, dim=1).sort(dim=1).values[:, :top_k]
+    return CompactBatchResult(
+        counts=_total(r.counts for _, r in res),
+        pages_inspected=_total(r.pages_inspected for _, r in res),
+        entries_matched=_total(r.entries_matched for _, r in res),
+        truncated=torch.stack([r.truncated.to(dev) for _, r in res]).any(dim=0),
+        bucket_needed=torch.stack([r.bucket_needed.to(dev)
+                                   for _, r in res]).max(),
+        pages_selected=_total(r.pages_selected for _, r in res),
+        pages_gathered=_total(r.pages_gathered for _, r in res),
+        row_ids=torch.where(merged < _INT32_MAX, merged, -1).to(torch.int32),
+    )
+
+
 def search_many_sharded(shards: HippoState, query_bitmaps: torch.Tensor,
                         keys: torch.Tensor, valid: torch.Tensor,
                         los: torch.Tensor, his: torch.Tensor
@@ -334,8 +399,20 @@ def search_many_sharded(shards: HippoState, query_bitmaps: torch.Tensor,
     query_bitmaps (S, Q, W), row s converted under shard s's bounds;
     keys/valid (S, PPS, C) slabs with slab-local entry page ids. Counts and
     match statistics sum over shards; ``page_mask`` is in global page order,
-    (Q, S*PPS), as in the reference.
+    (Q, S*PPS), as in the reference. Placed slabs and state
+    (``launch.shardings.place_sharded`` on a mesh of more than one entry)
+    run once per shard block where it lives, summed on the first block's
+    device, with the same results.
     """
+    if not isinstance(keys, torch.Tensor):
+        res = _on_blocks(search_many_sharded, shards, query_bitmaps, keys,
+                         valid, los, his)
+        return BatchSearchResult(
+            counts=_total(r.counts for _, r in res),
+            page_mask=torch.cat([r.page_mask.to(res[0][1].counts.device)
+                                 for _, r in res], dim=1),
+            pages_inspected=_total(r.pages_inspected for _, r in res),
+            entries_matched=_total(r.entries_matched for _, r in res))
     num_pages = keys.shape[1]
     match = batch_filter_sharded(query_bitmaps.contiguous(), shards.bitmaps,
                                  _live_slots(shards))                # (S, Q, E)
@@ -463,12 +540,16 @@ def search_compact_many_sharded(shards: HippoState, query_bitmaps: torch.Tensor,
     field equals the reference's ``search_compact_many_sharded`` bit for bit:
     counts/pages_inspected/entries_matched sum over shards, ``truncated``
     ORs, ``bucket_needed`` is the largest per-shard union, and row ids are
-    global (``s * PPS * C + local``) and merged ascending.
+    global (``s * PPS * C + local``) and merged ascending. Placed slabs and
+    state run per shard block, as in ``search_many_sharded``.
     """
     if max_selected < 1:
         raise ValueError(f"max_selected must be >= 1, got {max_selected}")
     if top_k < 0:
         raise ValueError(f"top_k must be >= 0, got {top_k}")
+    if not isinstance(keys, torch.Tensor):
+        return _compact_on_blocks(shards, query_bitmaps, keys, valid, los, his,
+                                  max_selected=max_selected, top_k=top_k)
     s, num_pages, card = keys.shape
     q = query_bitmaps.shape[1]
     # Step 2, batched: joint-bucket test + page-range expansion per query.

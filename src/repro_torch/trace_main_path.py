@@ -25,7 +25,10 @@ temporary directory: one full save split into its collect and its write
 with the fsyncs, one delta commit of the insert queue a drain of 4,096
 journaled writes changed, and one recovery of that directory (4,096 more
 journaled writes staged) split into read with the CRC, decode with the
-upload, and the journal replay. Prints, per window, the
+upload, and the journal replay; then model serving: ``smollm-360m`` at
+its published widths in bfloat16 behind the ``BatchServer`` (batch 8,
+prompts of 256 tokens), one ``admit`` (a prefill and the cache merge) and
+one lock-step decode step, each after a warm-up. Prints, per window, the
 wall time, the device-busy share of that window (summed kernel time over
 wall time), the number of device-to-host copies (each one a host sync) and
 the operators by device time.
@@ -125,6 +128,30 @@ def main() -> None:
               f"dirty pages)", sidx.vacuum)
     _writer_windows(rng, sidx)
     _durable_windows(rng, sidx)
+    _serving_windows(args.seed)
+
+
+def _serving_windows(seed: int) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.models import transformer
+    cfg = get_config("smollm-360m")
+    dev = torch.device("cuda")
+    model = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    rng = np.random.default_rng(seed)
+    server = BatchServer(model, 8, max_seq=256 + 64 + 1)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, 256).astype(
+        np.int32)) for i in range(8)]
+    server.admit(reqs[0])                                 # warm-up
+    torch.cuda.synchronize()
+    _profiled("serving: admit (prefill of 256 tokens + cache merge)",
+              lambda: server.admit(reqs[1]), cpu=True)
+    for r in reqs[2:]:
+        server.admit(r)
+    server.step()                                         # warm-up
+    torch.cuda.synchronize()
+    _profiled("serving: one decode step at batch 8", server.step, cpu=True)
 
 
 def _durable_windows(rng, sidx) -> None:

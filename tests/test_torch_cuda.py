@@ -838,6 +838,99 @@ def test_kvindex_on_card_equals_cpu_through_the_bucket_probe():
                                atol=1e-6)
 
 
+MODEL_ARCHS = ["llama4-maverick-400b-a17b", "qwen2-moe-a2.7b", "qwen2-vl-7b",
+               "musicgen-large", "recurrentgemma-9b", "yi-6b", "stablelm-3b",
+               "qwen2.5-3b", "smollm-360m", "rwkv6-3b"]
+
+
+@needs_cuda
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_model_on_card_equals_model_on_cpu(arch):
+    """The reduced config (float32, TF32 off) through forward, prefill and
+    three decode steps on the card against the same weights on the CPU,
+    within 1e-4."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models import serve as ts
+    from repro_torch.models import transformer as tt
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch).reduced()
+    if cfg.num_experts:
+        cfg = replace(cfg, capacity_factor=8.0)
+    cpu = tt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tt.init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(
+        "cuda")
+    rng = np.random.default_rng(1)
+    b, s = 2, 12
+    if cfg.frontend == "tokens":
+        inputs = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+    else:
+        inputs = torch.from_numpy(
+            rng.standard_normal((b, s, cfg.d_model)).astype(np.float32))
+    pos = torch.arange(s)[None].expand(b, s)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(
+        tt.forward(card, inputs.cuda(), pos.cuda()).cpu(),
+        tt.forward(cpu, inputs, pos), **tol)
+    outs = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        x, p = inputs.to(dev), pos.to(dev)
+        logits, cache = ts.prefill(model, x[:, :s - 3], p[:, :s - 3], s + 4)
+        steps = [logits.cpu()]
+        for t in range(s - 3, s):
+            logits, cache = ts.decode_step(model, cache, x[:, t:t + 1], t)
+            steps.append(logits.cpu())
+        outs[dev] = (steps, [{k: v.cpu() for k, v in c.items()}
+                             for c in cache])
+    for got, want in zip(outs["cuda"][0], outs["cpu"][0]):
+        torch.testing.assert_close(got, want, **tol)
+    for got, want in zip(outs["cuda"][1], outs["cpu"][1]):
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], **tol)
+
+
+@needs_cuda
+def test_placed_search_on_a_four_entry_card_mesh():
+    """``place_sharded`` on a 4-entry mesh of the card: each shard block is
+    searched where it lives and summed; every field equals the unplaced
+    search on the card and the same index on the CPU."""
+    from repro_torch.core import index as hix
+    from repro_torch.core.predicate import intervals
+    from repro_torch.launch.mesh import make_mesh_compat, make_shard_mesh
+    from repro_torch.launch.shardings import PlacedTensor, place_sharded
+    values = np.random.default_rng(41).integers(0, 2555, 20000).astype(
+        np.float32)
+    preds = [Predicate.between(float(lo), float(lo + w)) for lo, w in
+             zip(np.random.default_rng(42).integers(0, 2500, 24),
+                 [0, 9, 99] * 8)]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        idx = ShardedHippoIndex.create(PagedTable.from_values(values, 50),
+                                       num_shards=4, device=dev)
+        keys, valid = idx._slabs()
+        qbms = idx._query_bitmaps(preds)
+        los, his = intervals(preds, idx.device)
+        meshes = [None, make_mesh_compat((4,), ("data",), [idx.device] * 4)]
+        if dev == "cuda":
+            meshes.append(make_shard_mesh(4))
+        for mesh in meshes:
+            if mesh is None:
+                st, k, v = idx.state, keys, valid
+            else:
+                st, k, v = place_sharded(mesh, idx.state, keys, valid)
+                assert isinstance(k, PlacedTensor) == (mesh.size > 1)
+            dense = hix.search_many_sharded(st.shards, qbms, k, v, los, his)
+            compact = hix.search_compact_many_sharded(
+                st.shards, qbms, k, v, los, his,
+                max_selected=idx.spec.pages_per_shard, top_k=8)
+            res[(dev, None if mesh is None else mesh.size)] = [
+                t.cpu() for t in (*dense, *compact)]
+    want = res[("cpu", None)]
+    for key, got in res.items():
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), key
+
+
 @needs_cuda
 def test_cuda_tensor_raises_when_the_library_fails(monkeypatch):
     def broken():
