@@ -129,6 +129,28 @@ each of which exits nonzero on failure:
    placement and unplaced; ``reshard_for_mesh`` of a seeded tree onto
    meshes of 8 and 2 entries, block sums exact and block counts as the
    specs give. A ``placement`` JSON line carries it.
+   2k. Training (run after 2j, before 2f), with the counters set to 0 just
+   before and read just after: ``synthesize_corpus`` of 65,536 sequences of
+   513 tokens (1,024 pages of 64; vocabulary 49,152) from ``--seed`` and
+   ``HippoDataPipeline.create`` on the card with quality in [0.5, 1] (the
+   bucket probe builds the index, the single-query filter and inspection
+   select): the selected sequences equal brute force and fewer than all
+   pages are inspected. Then ``smollm-360m`` at its published widths and
+   full depth in bfloat16 with float32 moments, remat on, through
+   ``make_train_step`` under a one-card mesh: 3 + 30 steps of batch 8 x 512
+   tokens from the pipeline (lr 1e-3, warmup max(2, steps // 10)), the
+   last 30 timed, each ending in a synchronize; every loss finite and the
+   last five's mean below the first five's. The whole state is saved with
+   ``CheckpointManager`` in a fresh temporary directory (removed at the end
+   of the phase) and restored bit for bit; two steps from the restored
+   state give the uninterrupted run's losses within 1e-3 relative, and a
+   step at ``accum=2`` on the same batch its loss within 1e-2. Then the
+   reduced ``smollm-360m``, ``qwen2-moe-a2.7b``, ``recurrentgemma-9b`` and
+   ``rwkv6-3b`` in float32 (TF32 off) take two steps on the same batch on
+   the card and on the CPU: loss and grad norm within 1e-4 relative. A
+   ``train`` JSON line carries the step times, tokens/s, the step's bound,
+   the memory, the losses, the pipeline's build and select times, the
+   checkpoint's bytes and times and the card-against-CPU differences.
    2f. Durability on phase 2's index as 2c and 2d left it, with the counters
    set to 0 just before and read just after, in a fresh temporary
    directory (its filesystem and free bytes are printed; it is removed at
@@ -254,6 +276,25 @@ FAMILY_CHECKS = (("qwen2-moe-a2.7b", CHECK_POSITIONS),
                  ("qwen2-vl-7b", CHECK_POSITIONS),
                  ("musicgen-large", CHECK_POSITIONS),
                  ("stablelm-3b", CHECK_POSITIONS))
+# Phase 2k: training at full width and depth, the Hippo-indexed corpus, a
+# checkpoint of the whole state, and the card against the CPU
+TRAIN_ARCH = "smollm-360m"
+TRAIN_SEQS = 65_536              # 1,024 pages of 64 sequences
+TRAIN_SEQ_LEN = 513              # 512 inputs and their next tokens
+TRAIN_PAGE_CARD = 64
+TRAIN_QUALITY = (0.5, 1.0)
+TRAIN_BATCH = 8                  # 4,096 tokens a step
+TRAIN_WARMUP = 3                 # untimed steps before the timed ones
+TRAIN_STEPS = 30
+TRAIN_LR = 1e-3
+ACCUM_TOL = 1e-2                 # accum=2 against accum=1, bfloat16
+RESUME_TOL = 1e-3                # a restored state's next losses
+CARD_CPU_TOL = 1e-4              # float32, TF32 off
+CARD_CPU_ARCHS = ("smollm-360m", "qwen2-moe-a2.7b", "recurrentgemma-9b",
+                  "rwkv6-3b")
+# Published H100 SXM peak of dense bfloat16 tensor-core products (NVIDIA
+# data sheet, 700 W)
+BF16_OPS_PER_S = 989e12
 # Crash site -> the durable engine whose commit path runs it (the sweep of
 # the reference's tests/test_fault_recovery.py)
 SITE_CONFIG = {
@@ -443,6 +484,9 @@ def main() -> int:
 
     # -- 2j. placement of the sharded index on meshes --------------------------
     placement_phase(torch, K, hix, intervals, sidx, preds)
+
+    # -- 2k. training: the Hippo-indexed corpus, steps, a checkpoint ----------
+    training_phase(torch, args, K, Predicate)
 
     # -- 2f. durability on the mutated sharded index ---------------------------
     # the phase drops the index (a crash) and hands back the recovered one
@@ -2069,6 +2113,276 @@ def placement_phase(torch, K, hix, intervals, sidx, preds) -> None:
     print(f"placement checked: {len(preds)} queries on 1- and "
           f"{NUM_SHARDS}-entry meshes equal the unplaced search and brute "
           f"force")
+
+
+def step_bound_ms(cfg, n_params: int, batch: int, seq: int) -> dict:
+    """The least time of one train step on the card, the larger of two
+    sums: operations (6 N T dense bfloat16 at the tensor cores' peak, plus
+    the attention products, which run in float32 outside them: the scores
+    and the PV product, forward and twice in the backward pass, over all
+    S^2 positions as the blocked attention computes them) and bytes (the
+    parameters read and written, the gradients written and the float32
+    moments read and written once). Remat's recomputation is not in it."""
+    tokens = batch * seq
+    dense = 6 * n_params * tokens
+    hd = cfg.resolved_head_dim
+    attn = 3 * 4 * batch * seq * seq * cfg.num_heads * hd * cfg.num_layers
+    ops_ms = (dense / BF16_OPS_PER_S + attn / F32_OPS_PER_S) * 1e3
+    nbytes = n_params * (2 + 2 + 2 + 2 * 2 * 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ms": max(ops_ms, bytes_ms),
+            "by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "operations_ms": ops_ms, "bytes_ms": bytes_ms,
+            "dense_flop": dense, "attention_flop": attn, "bytes": nbytes}
+
+
+def state_equal(torch, a: dict, b: dict) -> bool:
+    """Two train states' parameters and moments equal bit for bit."""
+    pa = dict(a["params"].named_parameters())
+    pb = dict(b["params"].named_parameters())
+    if pa.keys() != pb.keys() or not torch.equal(a["opt"].step,
+                                                 b["opt"].step):
+        return False
+    for n in pa:
+        if not torch.equal(pa[n], pb[n]):
+            return False
+        for ma, mb in ((a["opt"].mu[n], b["opt"].mu[n]),
+                       (a["opt"].nu[n], b["opt"].nu[n])):
+            if not torch.equal(ma, mb):
+                return False
+    return True
+
+
+def card_against_cpu(torch, ts, tt, adamw_init, cfg, seed: int) -> dict:
+    """Two train steps of ``cfg`` (float32, TF32 off) on the same batch on
+    the card and on the CPU, from the same weights; returns each step's
+    loss and grad norm on both and their largest relative difference."""
+    batch = {k: torch.from_numpy(v) for k, v in
+             train_batch(cfg, 4, 16, seed).items()}
+    out = {}
+    for where in ("cpu", "cuda"):
+        dev = torch.device(where)
+        model = tt.init_params(cfg, torch.Generator().manual_seed(seed),
+                               "cpu").to(dev)
+        opt = adamw_init(model)
+        step = ts.make_train_step(cfg, peak_lr=TRAIN_LR, warmup=0, total=10)
+        runs = []
+        for _ in range(2):
+            model, opt, m = step(model, opt,
+                                 {k: v.to(dev) for k, v in batch.items()})
+            runs.append((float(m["loss"]), float(m["grad_norm"])))
+        out[where] = runs
+    rel = max(abs(a - b) / abs(b) for ca, cb in zip(out["cuda"], out["cpu"])
+              for a, b in zip(ca, cb))
+    if not rel <= CARD_CPU_TOL:
+        fail(f"train steps of {cfg.name}: card {out['cuda']} against CPU "
+             f"{out['cpu']} ({rel} relative, {CARD_CPU_TOL} allowed)")
+    return {"card": out["cuda"], "cpu": out["cpu"], "max_rel": rel}
+
+
+def train_batch(cfg, b: int, s: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"inputs": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int64),
+            "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int64),
+            "positions": np.broadcast_to(np.arange(s)[None], (b, s)).copy()}
+
+
+def training_phase(torch, args, K, Predicate) -> None:
+    """Phase 2k: the training path. The Hippo-indexed corpus selects its
+    sequences on the card (kernels C, F and E), exact against brute force;
+    ``smollm-360m`` at full width and depth in bfloat16 with float32
+    moments and remat takes 3 + 30 steps of batch 8 x 512 tokens, then a
+    checkpoint of the whole state round-trips bit for bit and steps from
+    the restored state (at accum 1 and 2) match the uninterrupted run's;
+    then four block families' reduced configs take two steps on the card
+    and on the CPU."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.checkpointing import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import HippoDataPipeline, synthesize_corpus
+    from repro_torch.launch import steps as ts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import adamw_init
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        fail("TF32 is on for float32 matmuls")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ_LEN - 1}
+
+    # the corpus and its Hippo selection on the card
+    t0 = time.perf_counter()
+    corpus = synthesize_corpus(num_seqs=TRAIN_SEQS, seq_len=TRAIN_SEQ_LEN,
+                               vocab_size=cfg.vocab_size,
+                               page_card=TRAIN_PAGE_CARD, seed=args.seed)
+    out["corpus_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe = HippoDataPipeline.create(corpus, Predicate.between(*TRAIN_QUALITY),
+                                    seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    create_ms = 1e3 * (time.perf_counter() - t0)
+    sel_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pipe.refresh_selection()
+        sel_ms.append(1e3 * (time.perf_counter() - t0))
+    q = corpus.quality
+    brute = np.flatnonzero((q >= TRAIN_QUALITY[0]) & (q <= TRAIN_QUALITY[1]))
+    if not np.array_equal(pipe.selected_ids, brute):
+        fail("training data: the Hippo selection differs from brute force")
+    pages = corpus.table.num_pages
+    if not pipe.pages_inspected < pages:
+        fail(f"training data: the index inspected all {pages} pages")
+    select_ms = float(np.median(sel_ms))
+    out["data"] = {"seqs": corpus.num_seqs, "pages": pages,
+                   "token_bytes": corpus.tokens.nbytes,
+                   "selected": int(pipe.selected_ids.size),
+                   "pages_inspected": pipe.pages_inspected,
+                   "build_ms": create_ms - sel_ms[0],
+                   "select_ms": select_ms, "select_ms_runs": sel_ms}
+    print(f"train data: {pipe.selected_ids.size:,}/{corpus.num_seqs:,} "
+          f"sequences selected, exact against brute force (inspected "
+          f"{pipe.pages_inspected}/{pages} pages via the Hippo index)")
+
+    # smollm-360m at full width and depth
+    mesh = make_host_mesh(data=1, model=1, devices=[dev])
+    t0 = time.perf_counter()
+    model = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    state = {"params": model, "opt": adamw_init(model)}
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    total = TRAIN_WARMUP + TRAIN_STEPS
+    kw = dict(peak_lr=TRAIN_LR, warmup=max(2, total // 10), total=total,
+              remat=True)
+    step_fn = ts.make_train_step(cfg, accum=1, **kw)
+
+    def batch_of(step):
+        return {k: torch.from_numpy(v).to(dev) for k, v in
+                pipe.get_batch(step, TRAIN_BATCH).items()}
+
+    def run(st, step, fn=step_fn):
+        batch = batch_of(step)
+        with mesh:
+            m, o, met = fn(st["params"], st["opt"], batch)
+        return {"params": m, "opt": o}, float(met["loss"]), float(
+            met["grad_norm"])
+
+    losses, gnorms, step_ms = [], [], []
+    for step in range(total):
+        t0 = time.perf_counter()
+        state, loss, gn = run(state, step)
+        torch.cuda.synchronize()
+        if step >= TRAIN_WARMUP:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        gnorms.append(gn)
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        fail(f"training: a loss or grad norm is not finite: {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        fail(f"training: the loss did not fall: {losses}")
+    tokens = TRAIN_BATCH * (TRAIN_SEQ_LEN - 1)
+    peak = torch.cuda.max_memory_allocated()
+    bound = step_bound_ms(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ_LEN - 1)
+    med = float(np.median(step_ms))
+    out.update({
+        "params": n_params, "steps": total, "timed_steps": TRAIN_STEPS,
+        "tokens_per_step": tokens, "step_ms_median": med,
+        "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+        "tokens_per_s": tokens / (med / 1e3),
+        "tokens_per_s_timed": tokens * TRAIN_STEPS / (sum(step_ms) / 1e3),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "loss_first5_mean": float(np.mean(losses[:5])),
+        "loss_last5_mean": float(np.mean(losses[-5:])), "losses": losses,
+        "grad_norm_first": gnorms[0], "grad_norm_last": gnorms[-1],
+        "bound": bound, "x_bound": med / bound["ms"],
+        "resident_before": resident, "max_memory_allocated": peak,
+        "phase_memory": peak - resident})
+
+    # a checkpoint of the whole state, restored; steps from it
+    root = Path(tempfile.mkdtemp(prefix="hippo-train-"))
+    try:
+        fs = subprocess.run(["stat", "-f", "-c", "%T", str(root)],
+                            capture_output=True, text=True, timeout=60)
+        mgr = CheckpointManager(root, keep=1)
+        t0 = time.perf_counter()
+        mgr.save(total, state)
+        host_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in root.rglob("*.npy"))
+        t0 = time.perf_counter()
+        step0, restored = mgr.restore_latest(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if step0 != total or not state_equal(torch, state, restored):
+            fail("checkpoint: the restored state differs from the saved one")
+        nxt, next_losses = state, []
+        for step in (total, total + 1):
+            nxt, loss, _ = run(nxt, step)
+            next_losses.append(loss)
+        res_losses = []
+        for step in (total, total + 1):
+            restored, loss, _ = run(restored, step)
+            res_losses.append(loss)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res_losses,
+                                                      next_losses))
+        if not rel <= RESUME_TOL:
+            fail(f"checkpoint: steps from the restored state lost "
+                 f"{res_losses} against {next_losses}")
+        _, again = mgr.restore_latest(nxt)
+        del restored, nxt, state, model
+        gc.collect()
+    finally:
+        shutil.rmtree(root)
+    accum_fn = ts.make_train_step(cfg, accum=2, **kw)
+    _, accum_loss, _ = run(again, total, accum_fn)
+    accum_rel = abs(accum_loss - next_losses[0]) / abs(next_losses[0])
+    if not accum_rel <= ACCUM_TOL:
+        fail(f"accum=2 gives loss {accum_loss} against accum=1's "
+             f"{next_losses[0]}")
+    out["checkpoint"] = {
+        "filesystem": fs.stdout.strip(), "bytes": nbytes,
+        "host_copy_s": host_s, "save_s": save_s, "restore_s": restore_s,
+        "next_losses": next_losses, "restored_losses": res_losses,
+        "max_rel": rel}
+    out["accum2"] = {"loss": accum_loss, "accum1_loss": next_losses[0],
+                     "rel": accum_rel}
+    del again, pipe, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = K.launch_counts()
+    out["hippo_kernel_launches"] = launches
+    for name in ("bucketize", "bitmap_and", "page_inspect"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched in the training phase")
+
+    # the card against the CPU, one config of each block family
+    out["card_vs_cpu"] = {}
+    for arch in CARD_CPU_ARCHS:
+        c = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        if c.num_experts:      # no capacity drops: a near tie may route
+            c = dataclasses.replace(c, capacity_factor=8.0)  # either way
+        out["card_vs_cpu"][arch] = card_against_cpu(torch, ts, tt, adamw_init,
+                                                    c, args.seed)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("train: " + json.dumps(out))
+    print(f"train checked: {TRAIN_STEPS} timed steps of {cfg.name} "
+          f"({n_params:,} parameters, {cfg.num_layers} layers) with finite, "
+          f"falling loss; the checkpoint round-trips bit for bit; "
+          f"{len(CARD_CPU_ARCHS)} families' steps equal the CPU's within "
+          f"{CARD_CPU_TOL}")
 
 
 def at_offset(torch, t, off: int):

@@ -13,6 +13,10 @@ CUDA is absent. Kernel wrappers dispatch on the tensor's device: a CPU tensor
 takes the kernel's plain PyTorch version, a CUDA tensor launches the
 hand-written kernel (``repro_torch/csrc``) or the call raises.
 
-This slice carries the main read path: build a sharded index over a paged
-key column, then serve compact-mode ``QueryEngine`` batches over it.
+The main read path builds a sharded index over a paged key column, then
+serves compact-mode ``QueryEngine`` batches over it. Beside it: the dense
+and single-query paths, maintenance and the writer, learned summaries,
+durability, the paper's comparison surfaces, placement, model serving, and
+training (``optim``, ``data``, ``checkpointing.checkpoint``,
+``launch.train``).
 """

@@ -1,3 +1,6 @@
+from repro_torch.checkpointing.checkpoint import (  # noqa: F401
+    CheckpointManager, latest_step, restore_checkpoint, save_checkpoint,
+)
 from repro_torch.checkpointing.layout import (  # noqa: F401
     CorruptSnapshotError, commit_sentinel, pack_sections, read_section_file,
     section_sizes, unpack_sections, write_file_durable, write_section_file,

@@ -32,8 +32,14 @@ and ``kvindex_from_arrays`` take the reference's arrays.
 Models cross as their parameter tree: ``model_from_reference`` takes the
 reference's ``init_params`` tree as numpy arrays (nested dicts and lists;
 ``units/b{j}_{kind}`` leaves stacked over the units) and returns the port's
-``Transformer`` with one block per layer; ``cache_to_reference`` restacks the
-port's per-layer serving caches into the reference's layout as numpy.
+``Transformer`` with one block per layer; ``params_to_reference`` is its
+inverse (CPU tensors, the dtypes kept); ``cache_to_reference`` restacks the
+port's per-layer serving caches into the reference's layout as numpy. The
+optimizer state crosses the same way: ``opt_state_to_reference`` restacks an
+``AdamWState``'s name-keyed moments (any moment dtype; an int8 moment's
+``q`` and ``s`` each) and ``opt_state_from_reference`` unstacks them.
+``tree_to_reference`` restacks any {parameter name: value} dict (gradients,
+say).
 """
 from __future__ import annotations
 
@@ -48,7 +54,10 @@ from repro_torch.core.kvindex import KVIndex, KVIndexConfig
 from repro_torch.core.partition import (ShardedHippoIndex, ShardedHippoState,
                                         ShardSpec)
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import Transformer, layer_kinds
+from repro_torch.launch.shardings import reference_path
+from repro_torch.models.transformer import (Transformer, init_params,
+                                            layer_kinds)
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.storage.table import PagedTable
 
 
@@ -169,7 +178,10 @@ def kvindex_from_arrays(cfg, channels, bounds, bitmaps,
 
 def _param(a, dev: torch.device) -> torch.Tensor:
     """A reference parameter array as a tensor: bfloat16 arrays (numpy's
-    ml_dtypes bfloat16) cross through float32, which holds them exactly."""
+    ml_dtypes bfloat16) cross through float32, which holds them exactly; a
+    tensor is moved as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
@@ -193,7 +205,7 @@ def model_from_reference(cfg, params: dict, device=None) -> Transformer:
     for i, kind in enumerate(kinds[: cfg.num_units * cfg.unit_len]):
         u, j = divmod(i, cfg.unit_len)
         blocks.append(_tree(params["units"][f"b{j}_{kind}"],
-                            lambda a, u=u: _param(np.asarray(a)[u], dev)))
+                            lambda a, u=u: _param(a[u], dev)))
     for extra in params.get("extra", []):
         blocks.append(_tree(extra, lambda a: _param(a, dev)))
     tree = {k: _tree(v, lambda a: _param(a, dev)) for k, v in params.items()
@@ -220,3 +232,110 @@ def cache_to_reference(cfg, cache: list[dict]) -> dict:
         out["extra"] = [{name: host(t) for name, t in c.items()}
                         for c in cache[unit_layers:]]
     return out
+
+
+def _layer_of(name: str) -> int:
+    parts = name.split(".")
+    return int(parts[1]) if parts[0] == "blocks" else -1
+
+
+def _set(tree: dict, path: tuple, value) -> None:
+    node = tree
+    for key in path[:-1]:
+        if key.startswith("["):                     # extra/[e]
+            node = node[int(key[1:-1])]
+        else:
+            node = node.setdefault(key, {})
+    node[path[-1]] = value
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """A CPU copy of t (never a view of a tensor that training updates in
+    place); a meta tensor stays as it is (shapes only)."""
+    t = t.detach()
+    return t if t.device.type == "meta" else t.to("cpu", copy=True)
+
+
+def _stack(values: list):
+    if isinstance(values[0], dict):                 # an int8 moment
+        return {k: _stack([v[k] for v in values]) for k in values[0]}
+    out = torch.stack([v.detach() for v in values])        # a new tensor
+    return out if out.device.type in ("cpu", "meta") else out.cpu()
+
+
+def _host(value):
+    if isinstance(value, dict):
+        return {k: _host(v) for k, v in value.items()}
+    return to_host(value)
+
+
+def tree_to_reference(cfg, named: dict) -> dict:
+    """{parameter name: value} (a tensor or an int8 moment's {q, s})
+    restacked into the reference's parameter tree as CPU copies (meta
+    tensors stay meta):
+    ``blocks.i`` of the unit layers stacked over the units into
+    ``units/b{j}_{kind}``, the leftover layers as the ``extra`` list."""
+    out: dict = {}
+    stacked: dict = {}
+    n_extra = len(cfg.leftover_pattern)
+    if n_extra:
+        out["extra"] = [{} for _ in range(n_extra)]
+    for name in sorted(named, key=_layer_of):
+        path = reference_path(cfg, name)
+        if path[0] == "units":
+            stacked.setdefault(path, []).append(named[name])
+        else:
+            _set(out, path, _host(named[name]))
+    for path, values in stacked.items():
+        _set(out, path, _stack(values))
+    return out
+
+
+def _reference_leaf(cfg, tree: dict, name: str):
+    path = reference_path(cfg, name)
+    node = tree
+    for key in path:
+        node = node[int(key[1:-1])] if key.startswith("[") else node[key]
+    if path[0] == "units":
+        u = _layer_of(name) // cfg.unit_len
+        if isinstance(node, dict):
+            return {k: v[u] for k, v in node.items()}
+        return node[u]
+    return node
+
+
+def _param_names(cfg) -> list[str]:
+    return [n for n, _ in init_params(cfg, device="meta").named_parameters()]
+
+
+def params_to_reference(cfg, model: Transformer) -> dict:
+    """The model's parameters as the reference's ``init_params`` tree of CPU
+    tensors (the inverse of ``model_from_reference``)."""
+    return tree_to_reference(cfg, dict(model.named_parameters()))
+
+
+def opt_state_to_reference(cfg, state: AdamWState) -> AdamWState:
+    """An ``AdamWState`` with the reference's moment trees (CPU tensors)."""
+    return AdamWState(step=to_host(state.step),
+                      mu=tree_to_reference(cfg, state.mu),
+                      nu=tree_to_reference(cfg, state.nu))
+
+
+def opt_state_from_reference(cfg, state, device=None) -> AdamWState:
+    """The port's ``AdamWState`` on ``device`` (None: the card) from a state
+    with the reference's fields (step, mu, nu) and moment trees (numpy
+    arrays or tensors; any moment dtype)."""
+    dev = resolve_device(device)
+
+    def moment(tree, name):
+        leaf = _reference_leaf(cfg, tree, name)
+        if isinstance(leaf, dict):
+            return {k: _param(v, dev) for k, v in leaf.items()}
+        return _param(leaf, dev)
+
+    names = _param_names(cfg)
+    return AdamWState(
+        step=torch.tensor(np.asarray(state.step), dtype=torch.int32,
+                          device=dev),
+        mu={n: moment(state.mu, n) for n in names},
+        nu={n: moment(state.nu, n) for n in names})

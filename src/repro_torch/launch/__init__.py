@@ -1,2 +1,3 @@
 """Launch layer (port of ``repro.launch``): meshes, placement specs, the
-serving step factories and the batch server."""
+train and serving step factories, the batch server and the train and serve
+CLIs."""

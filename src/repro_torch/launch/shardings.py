@@ -211,18 +211,40 @@ def reference_path(cfg, name: str) -> tuple:
     return ("extra", f"[{i - unit_layers}]", *parts[2:])
 
 
+def _leaf_sharding(cfg, mesh: Mesh, name: str, shape: tuple
+                   ) -> NamedSharding:
+    """The reference's spec of parameter ``name`` without the stacked unit
+    axis, fitted to ``shape``."""
+    path = reference_path(cfg, name)
+    spec = param_spec(cfg, path, None)
+    if path[0] == "units" and len(spec):
+        spec = P(*spec[1:])
+    return NamedSharding(mesh, _fit(mesh, spec, tuple(shape)))
+
+
 def make_param_shardings(cfg, mesh: Mesh, model) -> dict:
     """{parameter name: NamedSharding} for a ``Transformer`` (a meta one from
     ``launch.steps.params_shape`` allocates nothing): the reference's spec
     without the stacked unit axis, fitted to the parameter's shape."""
-    out = {}
-    for name, leaf in model.named_parameters():
-        path = reference_path(cfg, name)
-        spec = param_spec(cfg, path, leaf)
-        if path[0] == "units" and len(spec):
-            spec = P(*spec[1:])
-        out[name] = NamedSharding(mesh, _fit(mesh, spec, tuple(leaf.shape)))
-    return out
+    return {name: _leaf_sharding(cfg, mesh, name, leaf.shape)
+            for name, leaf in model.named_parameters()}
+
+
+def make_opt_shardings(cfg, mesh: Mesh, opt_shape):
+    """Shardings for an ``AdamWState`` (``launch.steps.opt_state_shape``,
+    any moment dtype), keyed as its moments are: a moment takes its
+    parameter's spec; an int8 moment's ``q`` shards like its parameter and
+    its ``s`` (a (..., 1) row scale) drops the trailing axis's spec by
+    fitting."""
+    def one(name, leaf):
+        if isinstance(leaf, dict):
+            return {k: one(name, v) for k, v in leaf.items()}
+        return _leaf_sharding(cfg, mesh, name, leaf.shape)
+
+    return type(opt_shape)(
+        step=replicated(mesh),
+        mu={n: one(n, m) for n, m in opt_shape.mu.items()},
+        nu={n: one(n, v) for n, v in opt_shape.nu.items()})
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,14 @@
 
 The reference pins the leading activation dim to the mesh's data axes with
 ``with_sharding_constraint`` whenever the model runs under a mesh context;
-outside a mesh it is a no-op. The port runs a model whole on one device, so
-``constrain_batch`` is the identity unless a mesh is active (``with mesh:``,
-``launch.mesh.Mesh``): on a one-position mesh it puts x on that position's
-device, and a mesh of more positions is refused, since the port does not
-split a model's activations across devices.
+outside a mesh it is a no-op. The constraint changes the layout, not the
+values. The port runs a model whole on one device, so ``constrain_batch`` is
+the identity unless a mesh is active (``with mesh:``, ``launch.mesh.Mesh``):
+on a mesh whose positions are all one device (the card, or the CPU in the
+tests) it puts x on that device, which holds the whole batch. A mesh that
+spans distinct devices is refused where its batch axes divide the batch:
+splitting a model's batch over several cards needs a process group, which
+the port does not have.
 """
 from __future__ import annotations
 
@@ -35,16 +38,19 @@ def batch_axes_for(mesh, batch: int) -> tuple:
 
 def constrain_batch(x: torch.Tensor, batch_dim: int = 0) -> torch.Tensor:
     """x as the reference lays it out: unchanged outside a mesh; on the
-    device of a one-position mesh; refused on a larger mesh whose batch
-    axes divide x's batch (the reference would split it there)."""
+    device of a mesh whose positions are all that one device; refused on a
+    mesh of distinct devices whose batch axes divide x's batch (the
+    reference would split it over them there)."""
     mesh = current_mesh()
     if mesh is None:
         return x
-    if mesh.size == 1:
+    devices = set(mesh.devices.flat)
+    if len(devices) == 1:
         return x.to(mesh.devices.flat[0])
     axes = batch_axes_for(mesh, x.shape[batch_dim])
     if not axes:
         return x
     raise NotImplementedError(
-        f"the port runs a model on one device; splitting a batch of "
-        f"{x.shape[batch_dim]} over mesh axes {axes} is not supported")
+        f"the mesh spans {len(devices)} distinct devices; splitting a batch "
+        f"of {x.shape[batch_dim]} over mesh axes {axes} needs a process "
+        f"group, which the port does not have")

@@ -1,17 +1,23 @@
 """Model assembly (port of ``repro.models.transformer``): block dispatch, the
-``Transformer`` module, its init and the forward pass.
+``Transformer`` module, its init, the forward pass and the training loss.
 
 The reference stacks each pattern position's parameters over the repeating
 units and scans them; here ``Transformer.blocks`` holds one ``Params`` node per
 layer in layer order (unit u, pattern position j is layer ``u*unit_len + j``,
 then the leftover layers) and the trunk runs them in a loop.
 ``convert.model_from_reference`` unstacks a reference parameter tree into
-this layout. The training loss comes with the training slice.
+this layout and ``convert.params_to_reference`` restacks it.
+
+Rematerialization is the reference's ``jax.checkpoint``: with ``remat`` each
+unit of the trunk and each leftover block runs under
+``torch.utils.checkpoint.checkpoint`` (recomputed in the backward pass), and
+the loss recomputes each chunk's head product the same way.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, moe, partition, rglru, rwkv
@@ -170,17 +176,33 @@ def embed_inputs(model: Transformer, inputs: torch.Tensor,
     return x
 
 
-def trunk(model: Transformer, inputs: torch.Tensor,
-          positions: torch.Tensor) -> torch.Tensor:
-    """Embed + all blocks + final norm -> hidden states (B, S, d)."""
+def _remat(fn, *args):
+    """fn(*args), recomputed in the backward pass instead of stored."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def trunk(model: Transformer, inputs: torch.Tensor, positions: torch.Tensor,
+          *, remat: bool = False) -> torch.Tensor:
+    """Embed + all blocks + final norm -> hidden states (B, S, d). With
+    ``remat`` each unit of ``cfg.unit_len`` blocks and each leftover block
+    is rematerialized (training)."""
     cfg = model.cfg
     x = partition.constrain_batch(embed_inputs(model, inputs, positions))
     angles = layers.positional_angles(cfg, positions)
     unit_layers = cfg.num_units * cfg.unit_len
-    for i, (kind, p) in enumerate(zip(model.kinds, model.blocks)):
-        x = block_apply(cfg, kind, p, x, angles)
-        if i < unit_layers and (i + 1) % cfg.unit_len == 0:
-            x = partition.constrain_batch(x)
+
+    def run(lo: int, hi: int, x: torch.Tensor) -> torch.Tensor:
+        for i in range(lo, hi):
+            x = block_apply(cfg, model.kinds[i], model.blocks[i], x, angles)
+        return x
+
+    for lo in range(0, unit_layers, cfg.unit_len):
+        hi = lo + cfg.unit_len
+        x = _remat(run, lo, hi, x) if remat else run(lo, hi, x)
+        x = partition.constrain_batch(x)
+    for i in range(unit_layers, len(model.kinds)):
+        x = _remat(run, i, i + 1, x) if remat else run(i, i + 1, x)
     return layers.apply_norm(cfg, model.final_norm, x)
 
 
@@ -192,3 +214,35 @@ def forward(model: Transformer, inputs: torch.Tensor,
             positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V)."""
     return trunk(model, inputs, positions) @ lm_head(model)
+
+
+def _chunk_loss(xc: torch.Tensor, lc: torch.Tensor, head: torch.Tensor
+                ) -> torch.Tensor:
+    """Summed next-token cross entropy of one chunk: the head product, a
+    float32 log-sum-exp and the label's logit; labels of -1 add nothing."""
+    logits = (xc @ head).to(torch.float32)               # (B, cc, V) transient
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+    return ((lse - ll) * (lc >= 0)).sum()
+
+
+def loss_fn(model: Transformer, batch: dict, *, remat: bool = True,
+            ce_chunk: int = 256) -> torch.Tensor:
+    """Next-token cross entropy with a *chunked fused* head (big-vocab
+    trick): the (B, S, V) logits are never materialized. Each sequence chunk
+    of at most ``ce_chunk`` positions (shrunk to a divisor of S) computes the
+    head product, log-softmax and gather, and is recomputed in the backward
+    pass. Labels of -1 are masked; the softmax runs in float32."""
+    x = trunk(model, batch["inputs"], batch["positions"], remat=remat)
+    head = lm_head(model)
+    labels = batch["labels"]
+    s = x.shape[1]
+    cc = min(ce_chunk, s)
+    while s % cc:
+        cc -= 1
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, cc):
+        tot = tot + _remat(_chunk_loss, x[:, c0:c0 + cc],
+                           labels[:, c0:c0 + cc], head)
+    cnt = (labels >= 0).sum()
+    return tot / cnt.clamp(min=1)

@@ -4,7 +4,8 @@ host-resident tree of arrays onto a new mesh.
 Growing or shrinking is: build the new mesh, recompute the specs
 (``launch.shardings`` is mesh-shape-agnostic), place every leaf. A spec that
 does not divide its leaf falls back to replication rather than failing.
-Restoring from a training checkpoint comes with the training slice.
+A training checkpoint is restored onto one device by
+``checkpointing.checkpoint.restore_checkpoint``.
 """
 from __future__ import annotations
 

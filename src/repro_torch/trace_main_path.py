@@ -28,10 +28,13 @@ journaled writes staged) split into read with the CRC, decode with the
 upload, and the journal replay; then model serving: ``smollm-360m`` at
 its published widths in bfloat16 behind the ``BatchServer`` (batch 8,
 prompts of 256 tokens), one ``admit`` (a prefill and the cache merge) and
-one lock-step decode step, each after a warm-up. Prints, per window, the
-wall time, the device-busy share of that window (summed kernel time over
-wall time), the number of device-to-host copies (each one a host sync) and
-the operators by device time.
+one lock-step decode step, each after a warm-up; then training:
+``smollm-360m`` in bfloat16 with float32 moments and remat on batches of 8 x
+512 tokens, after two warm-up steps one whole train step, then its loss and
+gradients and its AdamW update apart. Prints, per window, the wall time,
+the device-busy share of that window (summed kernel time over wall time),
+the device operations launched, the number of device-to-host copies (each
+one a host sync) and the operators by device time.
 """
 from __future__ import annotations
 
@@ -129,6 +132,41 @@ def main() -> None:
     _writer_windows(rng, sidx)
     _durable_windows(rng, sidx)
     _serving_windows(args.seed)
+    _training_windows(args.seed)
+
+
+def _training_windows(seed: int) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init, adamw_update
+    cfg = get_config("smollm-360m")
+    dev = torch.device("cuda")
+    model = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    opt = adamw_init(model)
+    step = steps.make_train_step(cfg, peak_lr=1e-3, warmup=3, total=30)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (8, 513))
+    batch = {"inputs": torch.from_numpy(tokens[:, :-1]).to(dev),
+             "labels": torch.from_numpy(tokens[:, 1:]).to(dev),
+             "positions": torch.arange(512, device=dev)[None].expand(8, 512)}
+    for _ in range(2):                                    # warm-up
+        model, opt, _ = step(model, opt, batch)
+    torch.cuda.synchronize()
+    _profiled("training: one train step (batch 8 x 512)",
+              lambda: step(model, opt, batch), cpu=True)
+    named = dict(model.named_parameters())
+    grads = {}
+
+    def loss_and_grads():
+        loss = transformer.loss_fn(model, batch)
+        grads.update(zip(named, torch.autograd.grad(loss,
+                                                    list(named.values()))))
+
+    _profiled("training: loss and gradients", loss_and_grads, cpu=True)
+    _profiled("training: the AdamW update",
+              lambda: adamw_update(grads, opt, model, lr=1e-4), cpu=True)
 
 
 def _serving_windows(seed: int) -> None:
@@ -254,6 +292,7 @@ def _profiled(name: str, fn, cpu: bool = False) -> None:
     d2h = sum(e.count for e in rows if "DtoH" in e.key)
     print(f"{name}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%} of the window), "
+          f"{sum(e.count for e in rows)} device operations, "
           f"{d2h} device-to-host copies")
     for e in rows[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} "

@@ -968,3 +968,112 @@ def test_sources_and_hash_of_another_directory(tmp_path):
     assert before != _build.source_hash()
     (tmp_path / "shared.cuh").write_text("// two\n")   # headers are hashed
     assert _build.source_hash(tmp_path) != before
+
+
+TRAIN_ARCHS = ["smollm-360m", "qwen2-moe-a2.7b", "recurrentgemma-9b",
+               "rwkv6-3b"]
+
+
+@needs_cuda
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_steps_on_card_equal_cpu(arch):
+    """Two train steps of the reduced config (float32, TF32 off; MoE with
+    no capacity drops) on the same batch, on the card and on the CPU from
+    the same weights: loss and grad norm per step within 1e-4 relative;
+    the parameters after them within 1e-4 on at least 99.9% of entries and
+    none off by more than 2 * lr a step (Adam's first steps move an entry
+    by about lr * sign(g), so a gradient near zero may flip its sign)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import adamw_init
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch).reduced()
+    if cfg.num_experts:
+        cfg = replace(cfg, capacity_factor=8.0)
+    rng = np.random.default_rng(2)
+    b, s = 4, 16
+    batch = {"inputs": rng.integers(0, cfg.vocab_size, (b, s)),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s)),
+             "positions": np.broadcast_to(np.arange(s)[None], (b, s)).copy()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                               "cpu").to(dev)
+        opt = adamw_init(model)
+        step = tsteps.make_train_step(cfg, peak_lr=1e-3, warmup=0, total=10)
+        metrics = []
+        for _ in range(2):
+            model, opt, m = step(model, opt, {k: torch.from_numpy(v).to(dev)
+                                              for k, v in batch.items()})
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        out[dev] = (metrics, {n: p.detach().cpu()
+                              for n, p in model.named_parameters()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    off = total = 0
+    for n, p in out["cpu"][1].items():
+        diff = (out["cuda"][1][n] - p).abs()
+        off += int((diff > 1e-4 + 1e-4 * p.abs()).sum())
+        total += p.numel()
+        assert float(diff.max()) <= 2 * 2 * 1e-3, n
+    assert off <= 1e-3 * total
+
+
+@needs_cuda
+def test_pipeline_selection_on_card_equals_brute_force():
+    """The Hippo-indexed corpus on the card: the build runs the bucket
+    probe, the selection the single-query filter and inspection; the
+    selected sequences and pages inspected equal the CPU's and brute
+    force."""
+    from repro_torch import kernels as K
+    from repro_torch.data import HippoDataPipeline, synthesize_corpus
+    corpus = synthesize_corpus(num_seqs=8192, seq_len=9, vocab_size=1000,
+                               seed=4)
+    for lo, hi in ((0.5, 1.0), (0.8, 0.9), (0.0, 1.0)):
+        K.reset_launch_counts()
+        card = HippoDataPipeline.create(corpus, Predicate.between(lo, hi),
+                                        device="cuda")
+        launches = K.launch_counts()
+        assert all(launches[k] > 0 for k in ("bucketize", "bitmap_and",
+                                             "page_inspect"))
+        cpu = HippoDataPipeline.create(corpus, Predicate.between(lo, hi),
+                                       device="cpu")
+        brute = np.flatnonzero((corpus.quality >= lo) & (corpus.quality <= hi))
+        np.testing.assert_array_equal(card.selected_ids, brute)
+        np.testing.assert_array_equal(cpu.selected_ids, brute)
+        assert card.pages_inspected == cpu.pages_inspected
+        np.testing.assert_array_equal(card.get_batch(3, 5)["inputs"],
+                                      cpu.get_batch(3, 5)["inputs"])
+
+
+@needs_cuda
+def test_bfloat16_logits_and_loss_on_card_equal_cpu():
+    """Reduced smollm in bfloat16 from the same weights: the serving
+    forward's logits on the card against the CPU within the CPU parity
+    test's bounds (max 0.05, mean 0.01: about one bfloat16 ulp at 4), and
+    the training loss within 1e-2 relative."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+    cfg = replace(get_config("smollm-360m").reduced(), dtype="bfloat16")
+    rng = np.random.default_rng(1)
+    b, s = 2, 32
+    batch = {"inputs": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (b, s))),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (b, s))),
+             "positions": torch.arange(s)[None].expand(b, s)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                               "cpu").to(dev)
+        bt = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            logits = tt.forward(model, bt["inputs"], bt["positions"])
+            loss = tt.loss_fn(model, bt)
+        assert logits.dtype == torch.bfloat16
+        out[dev] = (logits.float().cpu().numpy(), float(loss))
+    diff = np.abs(out["cuda"][0] - out["cpu"][0])
+    assert diff.max() <= 0.05 and diff.mean() <= 0.01
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-2)

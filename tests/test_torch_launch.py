@@ -21,6 +21,7 @@ import torch
 
 import repro.configs as jcfg
 from repro.core import index as jhix
+from repro.models import transformer as jt
 from repro.core.partition import ShardedHippoIndex as JSharded
 from repro.core.predicate import Predicate as JPred
 from repro.core.predicate import intervals as jintervals
@@ -32,6 +33,7 @@ from repro.launch.shardings import place_sharded as jplace_sharded
 from repro.storage.table import PagedTable as JTable
 from jax.sharding import PartitionSpec as JP
 import repro_torch.configs as tcfg
+from repro_torch import convert
 from repro_torch.core import index as thix
 from repro_torch.core.partition import ShardedHippoIndex as TSharded
 from repro_torch.core.predicate import Predicate as TPred
@@ -43,6 +45,7 @@ from repro_torch.launch.mesh import (batch_axes, current_mesh,
                                      make_production_mesh, make_shard_mesh)
 from repro_torch.launch.shardings import (P, NamedSharding, PlacedTensor,
                                           _batch_spec_axes, _fit,
+                                          make_opt_shardings,
                                           make_param_shardings, param_spec,
                                           place, place_sharded,
                                           reference_path, replicated,
@@ -96,9 +99,9 @@ _REF_PROG = textwrap.dedent("""
     from repro.configs import get_config
     from repro.launch import steps
     from repro.launch.mesh import make_mesh_compat, make_shard_mesh
-    from repro.launch.shardings import (make_param_shardings,
-        train_batch_shardings, tree_cache_shardings)
-    from repro.models import partition
+    from repro.launch.shardings import (make_opt_shardings,
+        make_param_shardings, train_batch_shardings, tree_cache_shardings)
+    from repro.models import partition, transformer
     from repro.runtime.elastic import reshard_for_mesh
 
     def spec(s):
@@ -110,10 +113,15 @@ _REF_PROG = textwrap.dedent("""
             out.append(str(k.key) if hasattr(k, "key") else f"[{k.idx}]")
         return "/".join(out)
 
+    def opt_name(path):
+        return "/".join(str(getattr(k, "name", getattr(k, "key", None)))
+                        if not hasattr(k, "idx") else f"[{k.idx}]"
+                        for k in path)
+
     MESHES = MESHES_SRC
     ELASTIC = ELASTIC_SRC
     out = {"params": {}, "cache": {}, "batch": {}, "shard_mesh": {},
-           "elastic": {}}
+           "elastic": {}, "opt": {}}
     for mname, (shape, axes) in MESHES.items():
         mesh = make_mesh_compat(shape, axes)
         for arch in ARCHS_SRC:
@@ -125,6 +133,12 @@ _REF_PROG = textwrap.dedent("""
             out["params"][f"{mname}/{arch}"] = {
                 name(p): spec(s) for p, s in
                 jax.tree_util.tree_leaves_with_path(sh)}
+            for md in ("float32", "int8"):
+                osh = make_opt_shardings(cfg, mesh, steps.opt_state_shape(
+                    cfg, steps.params_shape(cfg), md))
+                out["opt"][f"{mname}/{arch}/{md}"] = {
+                    opt_name(p): spec(s) for p, s in
+                    jax.tree_util.tree_leaves_with_path(osh)}
             for b in (8, 3):
                 csh = tree_cache_shardings(
                     cfg, mesh, steps.cache_shape(cfg, b, 64), b)
@@ -156,6 +170,25 @@ _REF_PROG = textwrap.dedent("""
                 "index": [[list(s.indices(d))[:2]
                            for s, d in zip(imap[mesh.devices[pos]], arr.shape)]
                           for pos in np.ndindex(*mesh.devices.shape)]}
+    # the reduced smollm's forward and loss under a 2-device data mesh
+    cfg = get_config("smollm-360m").reduced()
+    params = transformer.init_params(cfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(9)
+    b, s = 4, 12
+    batch = {"inputs": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+                 np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+                 np.int32),
+             "positions": np.broadcast_to(np.arange(s)[None], (b, s)).astype(
+                 np.int32).copy()}
+    with make_mesh_compat((2, 1), ("data", "model")):
+        logits = jax.jit(lambda p, x, q: transformer.forward(
+            cfg, p, x, q, remat=False))(params, batch["inputs"],
+                                        batch["positions"])
+        loss = jax.jit(lambda p, bt: transformer.loss_fn(cfg, p, bt))(
+            params, batch)
+    out["mesh_forward"] = {"logits": np.asarray(logits).tolist(),
+                           "loss": float(loss)}
     print(json.dumps(out))
 """).replace("MESHES_SRC", repr(MESHES)).replace(
     "ELASTIC_SRC", repr(ELASTIC)).replace("ARCHS_SRC", repr(SPEC_ARCHS))
@@ -228,10 +261,58 @@ def test_mesh_context_and_constrain_batch():
             assert current_mesh() is two
             y = x[:3]                       # 3 rows do not divide: as is
             assert tpartition.constrain_batch(y) is y
-            with pytest.raises(NotImplementedError, match="one device"):
-                tpartition.constrain_batch(x)
+            # both positions are the CPU: the whole batch stays on it
+            assert torch.equal(tpartition.constrain_batch(x), x)
         assert current_mesh() is one
     assert current_mesh() is None
+
+
+def test_constrain_batch_refuses_a_mesh_of_distinct_devices():
+    """Two distinct devices (here the CPU and a meta device standing in for
+    a second card) whose data axis divides the batch: splitting it would
+    need a process group, so it is refused; a batch it does not divide
+    passes as the reference leaves it."""
+    x = torch.arange(12.0).reshape(4, 3)
+    mesh = make_host_mesh(data=2, model=1,
+                          devices=[CPU, torch.device("meta")])
+    with mesh:
+        with pytest.raises(NotImplementedError, match="distinct devices"):
+            tpartition.constrain_batch(x)
+        y = x[:3]
+        assert tpartition.constrain_batch(y) is y
+
+
+def test_forward_and_loss_under_a_two_position_mesh_equal_reference(ref):
+    """Under ``make_host_mesh(data=2, model=1, devices=[cpu, cpu])`` the
+    reduced smollm's forward and ``loss_fn`` equal their values outside
+    the mesh exactly, and the reference's under its 2-device data mesh
+    (``with_sharding_constraint`` on 2 of the subprocess's 8 virtual
+    devices) within the models' 2e-4."""
+    jc = jcfg.get_config("smollm-360m").reduced()
+    tc = tcfg.get_config("smollm-360m").reduced()
+    params = jax.tree_util.tree_map(
+        np.asarray, jt.init_params(jc, jax.random.PRNGKey(0)))
+    model = convert.model_from_reference(tc, params, device="cpu")
+    rng = np.random.default_rng(9)
+    b, s = 4, 12
+    batch = {"inputs": rng.integers(0, tc.vocab_size, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, tc.vocab_size, (b, s)).astype(np.int32),
+             "positions": np.broadcast_to(np.arange(s)[None], (b, s)).astype(
+                 np.int32).copy()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        logits = tt.forward(model, tb["inputs"], tb["positions"])
+        loss = tt.loss_fn(model, tb)
+        with make_host_mesh(data=2, model=1, devices=[CPU, CPU]):
+            m_logits = tt.forward(model, tb["inputs"], tb["positions"])
+            m_loss = tt.loss_fn(model, tb)
+    assert torch.equal(m_logits, logits) and torch.equal(m_loss, loss)
+    want = ref["mesh_forward"]
+    np.testing.assert_allclose(m_logits.numpy(),
+                               np.asarray(want["logits"], np.float32),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(float(m_loss), want["loss"], rtol=2e-4,
+                               atol=2e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +395,35 @@ def test_param_and_cache_shardings_equal_reference(ref, mname, arch):
                 assert _spec_json(sh.spec) == spec, (i, leaf)
                 n += 1
         assert n >= len(want)
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("mname", sorted(MESHES))
+@pytest.mark.parametrize("arch", SPEC_ARCHS)
+def test_opt_shardings_equal_reference(ref, mname, arch, moment_dtype):
+    """Every moment's spec (an int8 moment's ``q`` and ``s``) and the step's
+    equal the reference's ``make_opt_shardings`` on the same mesh, without
+    the stacked unit axis."""
+    mesh = _cpu_mesh(*MESHES[mname])
+    cfg = tcfg.get_config(arch).reduced(d_model=128, num_heads=4,
+                                        num_kv_heads=4, head_dim=32,
+                                        vocab_size=512, d_ff=256, num_layers=5)
+    want = ref["opt"][f"{mname}/{arch}/{moment_dtype}"]
+    got = make_opt_shardings(cfg, mesh, tsteps.opt_state_shape(
+        cfg, tsteps.params_shape(cfg), moment_dtype))
+    assert _spec_json(got.step.spec) == want["step"]
+    seen = {"step"}
+    for field in ("mu", "nu"):
+        for name, sh in getattr(got, field).items():
+            path = reference_path(cfg, name)
+            parts = ({"": sh} if moment_dtype == "float32" else
+                     {f"/{k}": v for k, v in sh.items()})
+            for suffix, leaf in parts.items():
+                key = "/".join((field, *path)) + suffix
+                spec = want[key][1:] if path[0] == "units" else want[key]
+                assert _spec_json(leaf.spec) == spec, key
+                seen.add(key)
+    assert seen == set(want)
 
 
 def test_batch_shardings_equal_reference(ref):
