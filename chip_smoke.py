@@ -151,6 +151,21 @@ each of which exits nonzero on failure:
    ``train`` JSON line carries the step times, tokens/s, the step's bound,
    the memory, the losses, the pipeline's build and select times, the
    checkpoint's bytes and times and the card-against-CPU differences.
+   2l. The dry run at published widths (run after 2k, before 2f), with the
+   counters set to 0 just before and read just after (it runs no kernel):
+   ``launch.dryrun.main(["--mesh", "both", "--out", D])`` in a fresh
+   temporary directory prices all 64 (arch x shape x mesh) cells against
+   the card's memory, exit 0, and every record must carry the reference's
+   keys; then the blocks that mesh position (0, 0) holds of every
+   parameter, both moments, the step and the batch of the largest cell
+   (llama4-maverick-400b-a17b ``train_4k`` single-pod, ~8.80 GiB) are
+   allocated on the card with ``torch.empty``: the bytes asked of the
+   caching allocator (``requested_bytes``) must equal the record's
+   ``argument_bytes_per_device``, and the rise of ``memory_allocated()``
+   may exceed them only by the allocator's rounding (512 B a block, up to
+   1 MiB of a large block it does not split); the blocks are freed. A
+   ``dryrun`` JSON line carries each cell's argument GiB, the card's
+   memory, the three byte counts and the tensors, and the phase's seconds.
    2f. Durability on phase 2's index as 2c and 2d left it, with the counters
    set to 0 just before and read just after, in a fresh temporary
    directory (its filesystem and free bytes are printed; it is removed at
@@ -190,6 +205,18 @@ each of which exits nonzero on failure:
    bytes). Phase 3 runs after phases 2c-2f, so the filter, the inspection
    and the bucket probe are held and timed on the mutated, remapped and
    recovered index.
+4. The roofline of phase 3's kernels: ``repro_torch.roofline`` measures the
+   card's device-to-device copy rate (``cuda_stream``, 1 GiB, best of 5)
+   and restates phase 3's times with the reference's cost models at phase
+   3's shapes (``batch_filter_cost`` for A and D, ``compact_inspect_cost``
+   for B over all S slabs of the launch, ``bucketize_cost``,
+   ``page_inspect_cost``, ``bitmap_and_cost``; batched E has no model and
+   is left out), as ``report.build_table`` against ``cuda_stream`` and
+   against ``h100_sxm``; a ``roofline`` JSON line carries per kernel the
+   model's bytes, the bytes phase 3's bound counts once, their ratio and
+   both fractions. The models count one re-read of A's, D's and B's
+   operands per query, which the kernels do not pay, so those fractions
+   exceed 1: they are not bounds.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -313,11 +340,23 @@ MAIN_KERNELS = ("bucketize", "batch_filter", "compact_inspect")
 DENSE_KERNELS = ("batch_filter_unsharded", "bitmap_and", "page_inspect",
                  "page_inspect_many")
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
-# float32 operations/s outside the tensor cores, the rate these kernels'
-# compares and word ops run at.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+# Phase 2l: the dry run's grid (10 architectures x their shape cells x 2
+# meshes), the keys of the reference's record (dotted for nesting) beside
+# the card's own, and the cell whose blocks are allocated on the card.
+DRYRUN_CELLS = 64
+DRYRUN_KEYS = (
+    "arch", "shape", "kind", "mesh", "devices", "grad_accum", "layout",
+    "compile_s", "memory.argument_bytes_per_device",
+    "memory.output_bytes_per_device", "memory.temp_bytes_per_device",
+    "memory.code_bytes", "memory.tpu_total_bytes_est",
+    "memory.total_bytes_per_device", "cost_analysis.flops_per_device",
+    "cost_analysis.bytes_accessed_per_device", "collectives",
+    "fits_hbm_16gib", "hbm_bytes", "arguments_fit_hbm", "no_counterpart")
+DRYRUN_HELD = ("llama4-maverick-400b-a17b", "train_4k", False)
+# What the caching allocator may count beyond a request: its 512 B
+# rounding, and a large block's remainder of up to 1 MiB, which it does not
+# split off
+ALLOC_SLACK = 2**20 + 512
 
 
 def fail(msg: str) -> None:
@@ -325,8 +364,13 @@ def fail(msg: str) -> None:
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    """The least time on the card: bytes over the H100 SXM's HBM rate or
+    float32 operations (outside the tensor cores, where these kernels'
+    compares and word ops run) over its peak, the larger (the published
+    peaks of ``repro_torch.roofline.H100_SXM``)."""
+    from repro_torch.roofline import H100_SXM
+    t_bytes = nbytes / H100_SXM.mem_bw * 1e3
+    t_ops = ops / H100_SXM.vector_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -393,6 +437,7 @@ def main() -> int:
     from repro_torch.kernels.bucketize import ops as bk_ops
     from repro_torch.kernels.compact_inspect import ops as ci_ops
     from repro_torch.kernels.page_inspect import ops as pi_ops
+    from repro_torch.roofline import KERNELS as COST
     from repro_torch.runtime.engine import QueryEngine
     from repro_torch.storage.table import PagedTable
 
@@ -488,6 +533,9 @@ def main() -> int:
     # -- 2k. training: the Hippo-indexed corpus, steps, a checkpoint ----------
     training_phase(torch, args, K, Predicate)
 
+    # -- 2l. the dry run at published widths ------------------------------------
+    dryrun_phase(torch, K)
+
     # -- 2f. durability on the mutated sharded index ---------------------------
     # the phase drops the index (a crash) and hands back the recovered one
     held = {"sidx": sidx}
@@ -516,19 +564,21 @@ def main() -> int:
     bounds = shards.bounds[0].contiguous()
 
     report = []
+    models = {}       # the reference's cost model of each kernel that has one
 
     # A: batch_filter
     err = exact(torch, "batch_filter",
                 bf_ops.batch_filter_sharded(qb, shards.bitmaps, live),
                 bf_ops.batch_filter_sharded_ref(qb, shards.bitmaps, live))
     e, w = shards.bitmaps.shape[1], shards.bitmaps.shape[2]
-    nb, how = bound_ms(s * e * w * 4 + s * q * w * 4 + s * e + s * q * e,
-                       s * q * e * w)
+    once = (s * e * w * 4 + s * q * w * 4 + s * e + s * q * e,
+            s * q * e * w)
     report.append(("batch_filter", err,
                    lambda: bf_ops.batch_filter_sharded(qb, shards.bitmaps, live),
                    lambda: bf_ops.batch_filter_sharded_ref(qb, shards.bitmaps,
                                                            live),
-                   None, nb, how, f"S={s} Q={q} E={e} W={w}"))
+                   None, once, f"S={s} Q={q} E={e} W={w}"))
+    models["batch_filter"] = COST["batch_filter"](q=q, e=e, w=w, s=s)
     # B: compact_inspect
     err_b = exact(torch, "compact_inspect",
                   ci_ops.compact_inspect(keys, valid, sel, sel_mask, blo, bhi),
@@ -537,23 +587,25 @@ def main() -> int:
     c = keys.shape[2]
     pages_read = int((sel < p).sum())
     pairs = int(sel_mask.sum())
-    nb, how = bound_ms(pages_read * c * 5 + s * m * 4 + s * q * m + q * 8
-                       + s * q * m * 4, pairs * c * 3)
+    once = (pages_read * c * 5 + s * m * 4 + s * q * m + q * 8
+            + s * q * m * 4, pairs * c * 3)
     report.append(("compact_inspect", err_b,
                    lambda: ci_ops.compact_inspect(keys, valid, sel, sel_mask,
                                                   blo, bhi),
                    lambda: ci_ops.compact_inspect_ref(keys, valid, sel,
                                                       sel_mask, blo, bhi),
-                   None, nb, how,
+                   None, once,
                    f"S={s} Q={q} M={m} C={c} pages_read={pages_read} "
                    f"active_pairs={pairs}"))
+    # the reference's model has no shard axis: the launch inspects S slabs
+    models["compact_inspect"] = COST["compact_inspect"](q=q, m=s * m, c=c)
     # C: bucketize, with nan_last set as the core calls it
     err_c = exact(torch, "bucketize",
                   bk_ops.bucketize_values(bvals, bounds, RESOLUTION, True),
                   bk_ops.bucketize_ref(bvals, bounds, RESOLUTION, True))
     n = bvals.numel()
-    nb, how = bound_ms(n * 8 + bounds.numel() * 4,
-                       n * math.ceil(math.log2(bounds.numel() + 1)))
+    once = (n * 8 + bounds.numel() * 4,
+            n * math.ceil(math.log2(bounds.numel() + 1)))
 
     def library_bucketize():
         ids = torch.searchsorted(bounds, bvals, right=True) - 1
@@ -564,7 +616,8 @@ def main() -> int:
                                                    True),
                    lambda: bk_ops.bucketize_ref(bvals, bounds, RESOLUTION,
                                                 True),
-                   library_bucketize, nb, how, f"N={n} H={RESOLUTION}"))
+                   library_bucketize, once, f"N={n} H={RESOLUTION}"))
+    models["bucketize"] = COST["bucketize"](n=n, h=bounds.numel() - 1)
     if not torch.equal(library_bucketize().to(torch.int32),
                        bk_ops.bucketize_values(bvals, bounds, RESOLUTION,
                                                True)):
@@ -614,22 +667,24 @@ def main() -> int:
     err_d = exact(torch, "batch_filter_unsharded",
                   bf_ops.batch_filter(hqb, hst.bitmaps, hlive),
                   bf_ops.batch_filter_ref(hqb, hst.bitmaps, hlive))
-    nb, how = bound_ms(he * w * 4 + q * w * 4 + he + q * he, q * he * w)
+    once = (he * w * 4 + q * w * 4 + he + q * he, q * he * w)
     report.append(("batch_filter_unsharded", err_d,
                    lambda: bf_ops.batch_filter(hqb, hst.bitmaps, hlive),
                    lambda: bf_ops.batch_filter_ref(hqb, hst.bitmaps, hlive),
-                   None, nb, how, f"Q={q} E={he} W={w}"))
+                   None, once, f"Q={q} E={he} W={w}"))
+    models["batch_filter_unsharded"] = COST["batch_filter"](q=q, e=he, w=w)
     # F: bitmap_and, one query of the single-query search
     one = batch[2]                         # a 100-day predicate
     qb1 = to_bucket_bitmap(one, hst.histogram).contiguous()
     err_f = exact(torch, "bitmap_and",
                   ba_ops.bitmap_and_any(hst.bitmaps, qb1, hlive),
                   ba_ops.bitmap_and_any_ref(hst.bitmaps, qb1, hlive))
-    nb, how = bound_ms(he * w * 4 + w * 4 + he + he, he * w)
+    once = (he * w * 4 + w * 4 + he + he, he * w)
     report.append(("bitmap_and", err_f,
                    lambda: ba_ops.bitmap_and_any(hst.bitmaps, qb1, hlive),
                    lambda: ba_ops.bitmap_and_any_ref(hst.bitmaps, qb1, hlive),
-                   None, nb, how, f"E={he} W={w}"))
+                   None, once, f"E={he} W={w}"))
+    models["bitmap_and"] = COST["bitmap_and"](e=he, w=w)
     # E: page_inspect, that query's pages and interval
     hkeys = hidx.table.device_keys(device=dev)
     hvalid = hidx.table.device_valid(device=dev)
@@ -641,14 +696,15 @@ def main() -> int:
     err_e = max(exact(torch, "page_inspect qual", got[0], want[0]),
                 exact(torch, "page_inspect counts", got[1], want[1]))
     sel_pages = int(m1.sum())
-    nb, how = bound_ms(sel_pages * hc * 5 + hp + hp * hc + hp * 4 + 8,
-                       sel_pages * hc * 3)
+    once = (sel_pages * hc * 5 + hp + hp * hc + hp * 4 + 8,
+            sel_pages * hc * 3)
     report.append(("page_inspect", err_e,
                    lambda: pi_ops.page_inspect(hkeys, hvalid, m1, lo1, hi1),
                    lambda: pi_ops.page_inspect_ref(hkeys, hvalid, m1, lo1,
                                                    hi1),
-                   None, nb, how,
+                   None, once,
                    f"P={hp} C={hc} selected_pages={sel_pages}"))
+    models["page_inspect"] = COST["page_inspect"](p=hp, c=hc)
     # E, batched: page_inspect_many over the HippoIndex batch's page masks
     hmatch = bf_ops.batch_filter(hqb, hst.bitmaps, hlive)
     hmask = hix._expand_page_mask(hix._one_shard(hst), hmatch[None],
@@ -659,13 +715,13 @@ def main() -> int:
                   pi_ops.page_inspect_many_ref(k1, v1, hmask, blo, bhi))
     union_pages = int(hmask[0].any(dim=0).sum())
     active = int(hmask.sum())
-    nb, how = bound_ms(union_pages * hc * 5 + q * hp + q * 4 + q * 8,
-                       active * hc * 3)
+    once = (union_pages * hc * 5 + q * hp + q * 4 + q * 8,
+            active * hc * 3)
     report.append(("page_inspect_many", err_m,
                    lambda: pi_ops.page_inspect_many(k1, v1, hmask, blo, bhi),
                    lambda: pi_ops.page_inspect_many_ref(k1, v1, hmask, blo,
                                                         bhi),
-                   None, nb, how,
+                   None, once,
                    f"S=1 Q={q} P={hp} C={hc} union_pages={union_pages} "
                    f"active_pairs={active}"))
 
@@ -717,7 +773,10 @@ def main() -> int:
     path_launches = {**{n: launches[n] for n in MAIN_KERNELS},
                      **{n: dense["launches"][n] for n in DENSE_KERNELS}}
     kernels = []
-    for (name, err, fk, fp, fl, nb, how, shapes) in report:
+    once_bytes = {}
+    for (name, err, fk, fp, fl, once, shapes) in report:
+        nb, how = bound_ms(*once)
+        once_bytes[name] = once[0]
         k = K.KERNELS[name]
         row = {"name": name, "route": "cuda", "source": k.source,
                "replaces": k.replaces, "launches": path_launches[name],
@@ -748,6 +807,9 @@ def main() -> int:
             "read_keys_ms": lambda: hkeys.max(),
             "read_valid_ms": lambda: hvalid_u8.max()},
         "bucketize": {"copy_f32_to_i32_ms": lambda: ids.copy_(bvals)}})
+
+    # -- 4. the roofline of phase 3's kernels -----------------------------------
+    roofline_phase(torch, kernels, models, once_bytes)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2127,9 +2189,10 @@ def step_bound_ms(cfg, n_params: int, batch: int, seq: int) -> dict:
     dense = 6 * n_params * tokens
     hd = cfg.resolved_head_dim
     attn = 3 * 4 * batch * seq * seq * cfg.num_heads * hd * cfg.num_layers
-    ops_ms = (dense / BF16_OPS_PER_S + attn / F32_OPS_PER_S) * 1e3
+    from repro_torch.roofline import H100_SXM
+    ops_ms = (dense / BF16_OPS_PER_S + attn / H100_SXM.vector_ops) * 1e3
     nbytes = n_params * (2 + 2 + 2 + 2 * 2 * 4)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bytes_ms = nbytes / H100_SXM.mem_bw * 1e3
     return {"ms": max(ops_ms, bytes_ms),
             "by": "operations" if ops_ms >= bytes_ms else "bytes",
             "operations_ms": ops_ms, "bytes_ms": bytes_ms,
@@ -2383,6 +2446,126 @@ def training_phase(torch, args, K, Predicate) -> None:
           f"falling loss; the checkpoint round-trips bit for bit; "
           f"{len(CARD_CPU_ARCHS)} families' steps equal the CPU's within "
           f"{CARD_CPU_TOL}")
+
+
+def dryrun_phase(torch, K) -> None:
+    """Phase 2l: the dry run at published widths. ``launch.dryrun.main``
+    prices all 64 (arch x shape x mesh) cells against the card's memory
+    (it runs no kernel: the counters are read to show it); every record
+    must carry the reference's keys. Then the blocks that mesh position
+    (0, 0) holds of the largest cell's arguments (every parameter, the
+    optimizer state and the batch of llama4-maverick-400b-a17b ``train_4k``
+    single-pod) are allocated on the card: the bytes asked of the
+    allocator (its ``requested_bytes``) must equal the record's, and its
+    rise of ``memory_allocated()`` exceed them by no more than its
+    rounding (512 B a block, and up to 1 MiB of a large block that it
+    does not split)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config, shape_cells
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun-"))
+    K.reset_launch_counts()
+    try:
+        try:
+            dryrun.main(["--mesh", "both", "--out", str(out_dir)])
+        except SystemExit as e:
+            fail(f"the dry run exited with {e.code}")
+        records = {p.stem: json.loads(p.read_text())
+                   for p in sorted(out_dir.glob("*.json"))}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    launches = K.launch_counts()
+    priced_s = time.perf_counter() - t_phase
+    if len(records) != DRYRUN_CELLS:
+        fail(f"the dry run wrote {len(records)} records, not {DRYRUN_CELLS}")
+    for tag, rec in records.items():
+        for dotted in DRYRUN_KEYS:
+            head, _, tail = dotted.partition(".")
+            if head not in rec or (tail and tail not in rec[head]):
+                fail(f"dry-run record {tag} lacks {dotted}")
+        if rec["hbm_bytes"] != hbm:
+            fail(f"dry-run record {tag}: hbm_bytes {rec['hbm_bytes']} is "
+                 f"not the card's {hbm}")
+
+    arch, shape_name, multi = DRYRUN_HELD
+    held = records[f"{arch}_{shape_name}_{'multi' if multi else 'single'}"]
+    want = held["memory"]["argument_bytes_per_device"]
+    cfg = get_config(arch)
+    shape = next(s for s in shape_cells(cfg) if s.name == shape_name)
+    _, blocks, _ = dryrun.cell_blocks(cfg, shape, multi)
+    torch.cuda.synchronize()
+    base = (torch.cuda.memory_stats()["requested_bytes.all.current"],
+            torch.cuda.memory_allocated())
+    tensors = [torch.empty(s, dtype=d, device="cuda") for s, d in blocks]
+    requested = (torch.cuda.memory_stats()["requested_bytes.all.current"]
+                 - base[0])
+    rise = torch.cuda.memory_allocated() - base[1]
+    del tensors
+    torch.cuda.empty_cache()
+    slack = ALLOC_SLACK * len(blocks)
+    if requested != want or not 0 <= rise - want <= slack:
+        fail(f"{arch} {shape_name}: the card's allocator was asked for "
+             f"{requested} B and rose by {rise} B for the record's {want} B "
+             f"({len(blocks)} tensors)")
+    gib = {tag: rec["memory"]["argument_bytes_per_device"] / 2**30
+           for tag, rec in records.items()}
+    print("dryrun: " + json.dumps({
+        "cells": len(records), "hbm_bytes": hbm, "priced_s": priced_s,
+        "args_gib_per_device": gib,
+        "largest": max(gib, key=gib.get),
+        "arguments_fit_hbm": sum(r["arguments_fit_hbm"]
+                                 for r in records.values()),
+        "held": {"cell": list(DRYRUN_HELD), "record_bytes": want,
+                 "requested_bytes": requested, "allocated_bytes": rise,
+                 "tensors": len(blocks), "slack_bytes": slack},
+        "hippo_kernel_launches": launches,
+        "phase_s": time.perf_counter() - t_phase}))
+    print(f"dryrun checked: {len(records)} cells priced with every key of "
+          f"the reference's record; {arch} {shape_name} single-pod's "
+          f"{len(blocks)} blocks asked the card for the record's {want:,} B "
+          f"exactly and took {rise:,} B")
+
+
+def roofline_phase(torch, kernels: list, models: dict,
+                   once_bytes: dict) -> None:
+    """Phase 4: phase 3's kernel times restated with the reference's cost
+    models (``repro_torch.roofline``) at phase 3's shapes, against the
+    card's measured copy rate (``cuda_stream``) and the H100 SXM's
+    published peaks (``h100_sxm``); and per kernel the ratio of the model's
+    bytes to the bytes phase 3's bound counts once."""
+    from repro_torch.roofline import hardware, report, roofline
+    cuda = hardware("cuda_stream")
+    if not (math.isfinite(cuda.mem_bw) and cuda.mem_bw > 0):
+        fail(f"cuda_stream measured {cuda.mem_bw} B/s")
+    rows = [r for r in kernels if r["name"] in models]
+    doc = {"suites": {"kernels": [
+        {"name": r["name"], "us_per_call": r["ms"] * 1e3,
+         "derived": {"bytes": models[r["name"]].bytes_moved,
+                     "ops": models[r["name"]].ops}} for r in rows]}}
+    print(f"roofline: cuda_stream {cuda.mem_bw:.6g} B/s ({cuda.note})")
+    for r in kernels:
+        if r["name"] not in models:
+            print(f"roofline: {r['name']} has no cost model in the "
+                  f"reference; its row is left out")
+    tables = {name: report.build_table(doc, name)
+              for name in ("cuda_stream", "h100_sxm")}
+    for table in tables.values():
+        print(table)
+        if len(table.splitlines()) != 2 + len(rows):
+            fail("the roofline table lacks a kernel row")
+    out = {"cuda_stream_bytes_per_s": cuda.mem_bw, "kernels": {}}
+    for r in rows:
+        cost = models[r["name"]]
+        out["kernels"][r["name"]] = {
+            "model_bytes": cost.bytes_moved, "model_ops": cost.ops,
+            "once_bytes": once_bytes[r["name"]],
+            "model_over_once": cost.bytes_moved / once_bytes[r["name"]],
+            **{f"roofline_frac_{hw}": roofline(cost, r["ms"] / 1e3, hardware(
+                hw))["roofline_frac"] for hw in ("cuda_stream", "h100_sxm")}}
+    print("roofline: " + json.dumps(out))
 
 
 def at_offset(torch, t, off: int):

@@ -9,6 +9,8 @@ a card:
 The module imports torch and the port only (no JAX), so it runs where JAX is
 not installed. The build tests at the bottom run everywhere.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1077,3 +1079,40 @@ def test_bfloat16_logits_and_loss_on_card_equal_cpu():
     diff = np.abs(out["cuda"][0] - out["cpu"][0])
     assert diff.max() <= 0.05 and diff.mean() <= 0.01
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-2)
+
+
+@needs_cuda
+def test_measure_cuda_stream_is_finite_and_cached():
+    from repro_torch import roofline
+    a = roofline.measure_cuda_stream(mbytes=64, reps=3)
+    assert math.isfinite(a) and a > 0
+    assert roofline.measure_cuda_stream(mbytes=64, reps=3) == a
+    hw = roofline.hardware()
+    assert hw.name == "cuda_stream" and hw is roofline.hardware("cuda_stream")
+    assert torch.cuda.get_device_name(0) in hw.note
+
+
+@needs_cuda
+def test_dry_run_blocks_on_the_card_take_the_records_bytes():
+    """The blocks that mesh position 0 holds of a small cell's arguments,
+    allocated on the card: the caching allocator is asked for the record's
+    bytes exactly, and counts at most its rounding more (512 B a block, up
+    to 1 MiB of a large block that it does not split)."""
+    from repro_torch.configs import get_config, shape_cells
+    from repro_torch.launch import dryrun
+    cfg = get_config("smollm-360m")
+    shape = next(s for s in shape_cells(cfg) if s.name == "prefill_32k")
+    rec = dryrun.lower_cell(cfg.name, shape.name, False)
+    assert rec["hbm_bytes"] == torch.cuda.get_device_properties(
+        0).total_memory and rec["arguments_fit_hbm"]
+    _, blocks, _ = dryrun.cell_blocks(cfg, shape, False)
+    torch.cuda.synchronize()
+    stat = "requested_bytes.all.current"
+    base = torch.cuda.memory_stats()[stat], torch.cuda.memory_allocated()
+    held = [torch.empty(s, dtype=d, device="cuda") for s, d in blocks]
+    requested = torch.cuda.memory_stats()[stat] - base[0]
+    rise = torch.cuda.memory_allocated() - base[1]
+    del held
+    want = rec["memory"]["argument_bytes_per_device"]
+    assert requested == want
+    assert 0 <= rise - want <= (2**20 + 512) * len(blocks)
