@@ -166,6 +166,27 @@ each of which exits nonzero on failure:
    1 MiB of a large block it does not split); the blocks are freed. A
    ``dryrun`` JSON line carries each cell's argument GiB, the card's
    memory, the three byte counts and the tensors, and the phase's seconds.
+   2m. The examples (run after 2l, before 2f): the six modules of
+   ``repro_torch.examples`` (the README's Quickstart) through their argv
+   parsers on the card at the reference examples' sizes, each in a fresh
+   temporary directory with the counters set to 0 before and read after.
+   ``quickstart``, ``engine_serving``, ``hippo_data_pipeline`` and
+   ``hippokv_longcontext`` also run with ``--device cpu``: every line
+   equal once the timing fields are masked, and the first three's equal
+   to the numbers the reference examples print. ``serve_decode`` keeps its
+   asserts; ``train_lm`` takes its 300 steps, its first three losses
+   within 1e-4 relative (TF32 off) of the train CLI's on the CPU from the
+   same weights. Then ``engine_serving.run`` on phase 2's ``l_shipdate``
+   sorted, as a time-ordered append leaves it (``--rows`` rows, 50 a
+   page): 200 predicates of 1, 10 and 100 days (a quarter on the last 55
+   days and the appended ones), 64 rows of the 90 days past the last and
+   a delete of days [639, 664], 1% of the domain; the example's asserts
+   hold every engine against the per-query loop and a synchronous twin,
+   and every count is held against brute force on the card. An
+   ``examples`` JSON line carries each example's seconds, launches and
+   masked lines, and the SF10 run's q/s per engine, shard dispatches and
+   pruned shards, selected-page ratio, gather occupancy, fallbacks, drain
+   ms and peak device memory; every kernel must have launched in both.
    2f. Durability on phase 2's index as 2c and 2d left it, with the counters
    set to 0 just before and read just after, in a fresh temporary
    directory (its filesystem and free bytes are printed; it is removed at
@@ -358,6 +379,36 @@ DRYRUN_HELD = ("llama4-maverick-400b-a17b", "train_4k", False)
 # split off
 ALLOC_SLACK = 2**20 + 512
 
+# Phase 2m: the six examples (the README's Quickstart) at the reference's
+# sizes, the four Hippo ones also on the CPU; then engine_serving.run at
+# SF10 on phase 2's l_shipdate sorted, as a time-ordered append leaves it.
+HIPPO_EXAMPLES = ("quickstart", "engine_serving", "hippo_data_pipeline",
+                  "hippokv_longcontext")
+# the timing fields of the examples' lines: "19.0 ms", "(10499 q/s)",
+# "speedup 14.1x"
+TIMING_FIELD = r"\d+(?:\.\d+)?(?= ms\b| q/s\b|x$)"
+# the numbers the reference examples print at their sizes
+EXAMPLE_LINES = {
+    "quickstart": ("pages=2000  hippo entries=1000",
+                   "hippo=65,604 B (rle 117,604)",
+                   "hippo: 113 rows, inspected 450/2000 pages",
+                   "entries 1000 -> 1002; query still exact: 113 rows",
+                   "vacuum re-summarized 105/1002 entries",
+                   "pages inspected after vacuum: 262 (was 450)"),
+    "engine_serving": ("index: 5 entries, 1,924 B",
+                       "15 shard dispatches, 1 pruned",
+                       "selected-page ratio 96%",
+                       "64 dense fallbacks",
+                       "drained 64 rows in 3 units"),
+    "hippo_data_pipeline": ("11776/20000 seqs, inspected 232/313 pages",
+                            "5120/20000 seqs, inspected 113/313 pages",
+                            "2014/20000 seqs, inspected 82/313 pages"),
+}
+TRAIN_LOSS_CHECKS = 3            # train_lm's first losses, card against CPU
+CLUSTERED_PREDS = 200            # the reference example's stream length
+CLUSTERED_WRITES = 64            # ... and its writes
+CLUSTERED_DELETE = (639.0, 664.0)  # 26 of 2,555 days: 1% of the domain
+
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
@@ -535,6 +586,9 @@ def main() -> int:
 
     # -- 2l. the dry run at published widths ------------------------------------
     dryrun_phase(torch, K)
+
+    # -- 2m. the examples, and engine_serving at SF10 on a clustered column ---
+    examples_phase(torch, args, K, intervals, Predicate, values)
 
     # -- 2f. durability on the mutated sharded index ---------------------------
     # the phase drops the index (a crash) and hands back the recovered one
@@ -2527,6 +2581,208 @@ def dryrun_phase(torch, K) -> None:
           f"the reference's record; {arch} {shape_name} single-pod's "
           f"{len(blocks)} blocks asked the card for the record's {want:,} B "
           f"exactly and took {rise:,} B")
+
+
+def run_example(torch, module, argv: list) -> tuple[str, float]:
+    """``module.main(argv)`` in a fresh temporary working directory, its
+    standard output captured; returns the output and the wall seconds (to
+    a synchronize)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="example-") as d:
+        os.chdir(d)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                module.main([a.replace("{dir}", d) for a in argv])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+    return buf.getvalue(), wall
+
+
+def masked_lines(text: str) -> list:
+    import re
+    return [re.sub(TIMING_FIELD, "#", line) for line in text.splitlines()]
+
+
+def examples_phase(torch, args, K, intervals, Predicate,
+                   values: np.ndarray) -> None:
+    """Phase 2m: the six examples of ``repro_torch.examples`` through their
+    argv parsers on the card, at the reference examples' sizes, each in a
+    fresh temporary directory with its counters set to 0 before and read
+    after. The four Hippo examples also run with ``--device cpu``: every
+    line equal once the timing fields are masked, and the first three's
+    equal to the numbers the reference examples print. ``serve_decode``
+    keeps its asserts; ``train_lm`` takes its 300 steps, and its first
+    three losses equal, within 1e-4 relative (TF32 off), those of the train
+    CLI on the CPU from the same weights (drawn on the card) with the
+    example's argv and ``--stop-after 3``. Then ``engine_serving.run`` on
+    phase 2's ``l_shipdate`` sorted (SF10, 50 tuples a page): 200
+    predicates (1-, 10- and 100-day ranges, a quarter on the last 55 days
+    and the appended ones), 64 rows of days past the last and a delete of
+    1% of the domain; its asserts hold every path against the per-query
+    loop and the synchronous twin, and every count is held here against
+    brute force on the card."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.examples import (engine_serving, hippo_data_pipeline,
+                                      hippokv_longcontext, quickstart,
+                                      serve_decode, train_lm)
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import adamw_init
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        fail("TF32 is on for float32 matmuls")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    modules = {"quickstart": quickstart, "engine_serving": engine_serving,
+               "hippo_data_pipeline": hippo_data_pipeline,
+               "hippokv_longcontext": hippokv_longcontext,
+               "serve_decode": serve_decode, "train_lm": train_lm}
+    out = {"examples": {}}
+    total = dict.fromkeys(K.launch_counts(), 0)
+
+    def on_card(name: str, argv: list) -> str:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        text, wall = run_example(torch, modules[name], argv)
+        launches = K.launch_counts()
+        for k, n in launches.items():
+            total[k] += n
+        out["examples"][name] = {"wall_s": wall, "launches": launches}
+        return text
+
+    # the four Hippo examples: the card's lines are the CPU's
+    for name in HIPPO_EXAMPLES:
+        cpu_text, cpu_wall = run_example(torch, modules[name],
+                                         ["--device", "cpu"])
+        card_text = on_card(name, [])
+        got, want = masked_lines(card_text), masked_lines(cpu_text)
+        if got != want:
+            diff = [(a, b) for a, b in zip(got, want) if a != b]
+            fail(f"example {name}: the card's lines differ from the CPU's "
+                 f"({len(got)} against {len(want)} lines; first "
+                 f"differences {diff[:3]})")
+        for line in EXAMPLE_LINES.get(name, ()):
+            if line not in card_text:
+                fail(f"example {name}: the reference's {line!r} is not "
+                     f"printed")
+        out["examples"][name].update(cpu_wall_s=cpu_wall, lines=got)
+
+    text = on_card("serve_decode", [])
+    served = [ln for ln in text.splitlines() if ln.startswith("served ")]
+    if not text.rstrip().endswith("OK: all requests served") or not served:
+        fail(f"example serve_decode: {text[-300:]!r}")
+    out["examples"]["serve_decode"]["served"] = served[0]
+
+    # train_lm: its losses are what the CLI returns
+    losses = []
+    cli_main = train_cli.main
+
+    def spy(argv=None):
+        losses.append(cli_main(argv))
+        return losses[-1]
+
+    train_cli.main = spy
+    try:
+        text = on_card("train_lm", ["--ckpt-dir", "{dir}/ckpt"])
+    finally:
+        train_cli.main = cli_main
+    card = losses[0]
+    if not text.rstrip().endswith(f"over {len(card)} steps") \
+            or not all(math.isfinite(x) for x in card):
+        fail(f"example train_lm: {text[-300:]!r}")
+
+    build_state = train_cli.build_state
+
+    def card_drawn(cfg, seed, device):
+        """The card's initial weights, on ``device``."""
+        model = build_state(cfg, seed, dev)["params"].to(device)
+        return {"params": model, "opt": adamw_init(model)}
+
+    train_cli.build_state = card_drawn
+    try:
+        with tempfile.TemporaryDirectory(prefix="example-") as d, \
+                contextlib.redirect_stdout(io.StringIO()):
+            cpu = cli_main(train_lm.train_argv(len(card), "smollm-360m", d)
+                           + ["--device", "cpu", "--stop-after",
+                              str(TRAIN_LOSS_CHECKS)])
+    finally:
+        train_cli.build_state = build_state
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    if len(cpu) != TRAIN_LOSS_CHECKS or not rel <= CARD_CPU_TOL:
+        fail(f"example train_lm: the card's first losses "
+             f"{card[:TRAIN_LOSS_CHECKS]} against the CPU's {cpu} "
+             f"({rel} relative, {CARD_CPU_TOL} allowed)")
+    out["examples"]["train_lm"].update(
+        steps=len(card), first_loss=card[0], last_loss=card[-1],
+        cpu_first_losses=cpu, card_first_losses=card[:TRAIN_LOSS_CHECKS],
+        max_rel=rel)
+
+    # ... at SF10 on the clustered column
+    t0 = time.perf_counter()
+    col = torch.sort(torch.from_numpy(values).to(dev)).values
+    host = col.cpu().numpy()
+    rng = np.random.default_rng(args.seed + 8)
+    preds = writer_preds(Predicate, rng, CLUSTERED_PREDS)
+    new_rows = rng.integers(SHIPDATE_DAYS, SHIPDATE_DAYS + NEW_DAYS,
+                            CLUSTERED_WRITES).astype(np.float32)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"engine_serving on the sorted l_shipdate ({len(host):,} rows, "
+          f"{PAGE_CARD} a page):")
+    t0 = time.perf_counter()
+    res = engine_serving.run(host, preds, new_rows, CLUSTERED_DELETE,
+                             page_card=PAGE_CARD, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = K.launch_counts()
+    los, his = intervals(preds, dev)
+
+    def scan(v):
+        return np.asarray([int(((v >= los[q]) & (v <= his[q])).sum())
+                           for q in range(len(preds))], np.int64)
+
+    base, staged = scan(col), scan(torch.from_numpy(new_rows).to(dev))
+    lo, hi = CLUSTERED_DELETE
+    want = {"counts": base, "async_counts": base + staged,
+            "after_counts": scan(col[(col < lo) | (col > hi)]) + staged}
+    for key, w in want.items():
+        if not np.array_equal(np.asarray(res[key], np.int64), w):
+            fail(f"engine_serving at SF10: {key} differ from brute force "
+                 f"in {int((np.asarray(res[key]) != w).sum())} of "
+                 f"{len(preds)} queries")
+    deleted = int(((col >= lo) & (col <= hi)).sum())
+    del col
+    sf10 = {k: v for k, v in res.items() if k not in want}
+    sf10.update(preds=len(preds), writes=CLUSTERED_WRITES,
+                delete=list(CLUSTERED_DELETE), deleted_rows=deleted,
+                setup_s=setup_s, run_s=run_s, launches=launches,
+                resident_before=resident, max_memory_allocated=peak,
+                peak_above_resident=peak - resident)
+    out["sf10_clustered"] = sf10
+    for what, counts in (("the examples", total), ("the SF10 run", launches)):
+        for name, n in counts.items():
+            if n == 0:
+                fail(f"kernel {name} was not launched by {what}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("examples: " + json.dumps(out))
+    print(f"examples checked: six examples ran on the card with their "
+          f"asserts; the four Hippo examples' lines equal the CPU's; "
+          f"train_lm's first {TRAIN_LOSS_CHECKS} losses equal the CPU's "
+          f"within {CARD_CPU_TOL}; engine_serving at SF10 on a clustered "
+          f"column equals brute force in {3 * len(preds)} counts")
 
 
 def roofline_phase(torch, kernels: list, models: dict,

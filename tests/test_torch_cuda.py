@@ -1116,3 +1116,26 @@ def test_dry_run_blocks_on_the_card_take_the_records_bytes():
     want = rec["memory"]["argument_bytes_per_device"]
     assert requested == want
     assert 0 <= rise - want <= (2**20 + 512) * len(blocks)
+
+
+# the examples' timing fields: "19.0 ms", "(10499 q/s)", "speedup 14.1x"
+EXAMPLE_TIMING = r"\d+(?:\.\d+)?(?= ms\b| q/s\b|x$)"
+
+
+@needs_cuda
+@pytest.mark.parametrize("name", ["quickstart", "engine_serving"])
+def test_example_on_the_card_prints_the_cpu_lines(name, capsys):
+    """``python -m repro_torch.examples.<name>`` on the card (its default
+    device) prints the ``--device cpu`` run's lines, timings masked."""
+    import importlib
+    import re
+    example = importlib.import_module(f"repro_torch.examples.{name}")
+    example.main(["--device", "cpu"])
+    want = capsys.readouterr().out
+    example.main([])
+    got = capsys.readouterr().out
+
+    def masked(text):
+        return [re.sub(EXAMPLE_TIMING, "#", ln) for ln in text.splitlines()]
+
+    assert masked(got) == masked(want)
