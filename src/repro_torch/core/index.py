@@ -69,6 +69,7 @@ from repro_torch.kernels.batch_filter import batch_filter, batch_filter_sharded
 from repro_torch.kernels.bitmap_and import bitmap_and_any
 from repro_torch.kernels.compact_inspect import compact_inspect
 from repro_torch.kernels.page_inspect import page_inspect, page_inspect_many
+from repro_torch.spans import span
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -553,27 +554,37 @@ def search_compact_many_sharded(shards: HippoState, query_bitmaps: torch.Tensor,
     s, num_pages, card = keys.shape
     q = query_bitmaps.shape[1]
     # Step 2, batched: joint-bucket test + page-range expansion per query.
-    match = batch_filter_sharded(query_bitmaps.contiguous(), shards.bitmaps,
-                                 _live_slots(shards))                # (S, Q, E)
-    page_mask = _expand_page_mask(shards, match, num_pages)          # (S, Q, P)
+    with span("hippo.index.filter"):
+        match = batch_filter_sharded(query_bitmaps.contiguous(),
+                                     shards.bitmaps,
+                                     _live_slots(shards))            # (S, Q, E)
+    with span("hippo.index.expand"):
+        page_mask = _expand_page_mask(shards, match, num_pages)      # (S, Q, P)
     # Union across the batch: one slab of page ids serves every query.
-    union = page_mask.any(dim=1)                                     # (S, P)
-    n_union = union.sum(dim=1, dtype=torch.int32)                    # (S,)
-    sel = _select_union(union, max_selected)                         # (S, M)
-    in_range = sel < num_pages
-    idx = sel.clamp(max=num_pages - 1).long()[:, None, :].expand(s, q, max_selected)
-    sel_mask = (torch.gather(page_mask, 2, idx)
-                & in_range[:, None, :]).contiguous()                 # (S, Q, M)
-    counts = compact_inspect(keys, valid, sel, sel_mask, los, his)  # (S, Q, M)
+    with span("hippo.index.select"):
+        union = page_mask.any(dim=1)                                 # (S, P)
+        n_union = union.sum(dim=1, dtype=torch.int32)                # (S,)
+        sel = _select_union(union, max_selected)                     # (S, M)
+        in_range = sel < num_pages
+        idx = sel.clamp(max=num_pages - 1).long()[:, None, :].expand(
+            s, q, max_selected)
+        sel_mask = (torch.gather(page_mask, 2, idx)
+                    & in_range[:, None, :]).contiguous()             # (S, Q, M)
+    with span("hippo.index.inspect"):
+        counts = compact_inspect(keys, valid, sel, sel_mask, los,
+                                 his)                                # (S, Q, M)
     pages_inspected = page_mask.sum(dim=2, dtype=torch.int32)        # (S, Q)
     covered = sel_mask.sum(dim=2, dtype=torch.int32)
     if top_k:
-        ids = _first_row_ids(keys, valid, sel, counts, los, his, top_k)
-        offs = torch.arange(s, device=keys.device) * num_pages * card
-        gids = torch.where(ids >= 0, ids + offs[:, None, None], _INT32_MAX)
-        merged = gids.permute(1, 0, 2).reshape(q, -1).sort(dim=1).values
-        merged = merged[:, :top_k]
-        row_ids = torch.where(merged < _INT32_MAX, merged, -1).to(torch.int32)
+        with span("hippo.index.row_ids"):
+            ids = _first_row_ids(keys, valid, sel, counts, los, his, top_k)
+            offs = torch.arange(s, device=keys.device) * num_pages * card
+            gids = torch.where(ids >= 0, ids + offs[:, None, None],
+                               _INT32_MAX)
+            merged = gids.permute(1, 0, 2).reshape(q, -1).sort(dim=1).values
+            merged = merged[:, :top_k]
+            row_ids = torch.where(merged < _INT32_MAX, merged,
+                                  -1).to(torch.int32)
     else:
         row_ids = torch.zeros((q, 0), dtype=torch.int32, device=keys.device)
     return CompactBatchResult(
@@ -603,8 +614,9 @@ def search_compact_many_sharded_staged(shards: HippoState,
     res = search_compact_many_sharded(shards, query_bitmaps, keys, valid,
                                       los, his, max_selected=max_selected,
                                       top_k=top_k)
-    return res._replace(counts=res.counts + staged_overlay_counts(
-        staged_vals, staged_live, los, his))
+    with span("hippo.index.overlay"):
+        return res._replace(counts=res.counts + staged_overlay_counts(
+            staged_vals, staged_live, los, his))
 
 
 def search_compact_many(state: HippoState, query_bitmaps: torch.Tensor,

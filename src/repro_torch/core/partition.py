@@ -51,6 +51,7 @@ from repro_torch.core.predicate import (Predicate, _nonempty, intervals,
                                         to_bucket_bitmaps)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.batch_filter import batch_filter_sharded
+from repro_torch.spans import span
 from repro_torch.storage.table import PagedTable
 
 SUMMARY_POLICIES = ("equal_mass", "learned")
@@ -283,8 +284,9 @@ class ShardedHippoIndex:
         counts also include its live staged rows, which occupy no page yet:
         they never enter row ids and cannot truncate."""
         self._check_swap_guard()
-        qbms = self._query_bitmaps(preds)
-        los, his = intervals(preds, self.device)
+        with span("hippo.index.convert"):
+            qbms = self._query_bitmaps(preds)
+            los, his = intervals(preds, self.device)
         keys, valid = self._slabs()
         if self.staging is not None and self.staging.staged_rows:
             vals, live = self.staging.device_buffers()

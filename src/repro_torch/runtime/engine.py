@@ -78,6 +78,7 @@ import torch
 from repro_torch.core.partition import SUMMARY_POLICIES
 from repro_torch.core.predicate import Predicate
 from repro_torch.runtime.writer import MaintenanceWriter
+from repro_torch.spans import span
 
 _EMPTY = Predicate(lo=1.0, hi=0.0)   # lo > hi: matches nothing
 
@@ -371,10 +372,11 @@ class QueryEngine:
     def _admit(self) -> None:
         if not self.queue:
             return
-        for i in (i for i, t in enumerate(self.slots) if t is None):
-            if not self.queue:
-                break
-            self.slots[i] = self.queue.popleft()
+        with span("hippo.engine.admit"):
+            for i in (i for i, t in enumerate(self.slots) if t is None):
+                if not self.queue:
+                    break
+                self.slots[i] = self.queue.popleft()
 
     # -- writes --------------------------------------------------------------
 
@@ -739,7 +741,8 @@ class QueryEngine:
                 or not self.writer.pending_units):
             return
         try:
-            self._drain(self.drain_units)
+            with span("hippo.engine.drain"):
+                self._drain(self.drain_units)
         except RuntimeError:
             self._auto_drain_suspended = True
             raise
@@ -751,38 +754,42 @@ class QueryEngine:
         routed mode, one dispatch per matched shard). Returns the tickets
         retired by this batch. Under ``between_batches`` the drain runs
         first, so a refusal raises before any query work."""
-        self._maybe_drain_between_batches()
-        self._admit()
-        active = [i for i, t in enumerate(self.slots) if t is not None]
-        if not active:
-            return []
-        row_ids = None
-        if self.mode == "compact":
-            counts, inspected, matched, row_ids = self._execute_compact(active)
-        elif self.sharded:
-            counts, inspected, matched = self._execute_sharded(active)
-        else:
-            counts, inspected, matched = self._execute_dense(active)
-        finished = []
-        for k, i in enumerate(active):
-            t = self.slots[i]
-            t.count = int(counts[k])
-            t.pages_inspected = int(inspected[k])
-            t.entries_matched = int(matched[k])
-            if row_ids is not None:
-                ids = row_ids[k]
-                t.row_ids = ids[ids >= 0].copy()   # strip the -1 pads
-            t.done = True
-            finished.append(t)
-            self.slots[i] = None          # recycle the slot
-        self.stats.batches += 1
-        if not self.sharded:
-            # compact and fused dense modes dispatch the full batch width;
-            # the routed dispatch accounts per shard in _execute_sharded
-            self.stats.slots_filled += len(active)
-            self.stats.pad_slots += self.batch - len(active)
-        self.stats.served += len(finished)
-        return finished
+        with span("hippo.engine.batch"):
+            self._maybe_drain_between_batches()
+            self._admit()
+            active = [i for i, t in enumerate(self.slots) if t is not None]
+            if not active:
+                return []
+            row_ids = None
+            if self.mode == "compact":
+                counts, inspected, matched, row_ids = \
+                    self._execute_compact(active)
+            elif self.sharded:
+                counts, inspected, matched = self._execute_sharded(active)
+            else:
+                counts, inspected, matched = self._execute_dense(active)
+            finished = []
+            with span("hippo.engine.retire"):
+                for k, i in enumerate(active):
+                    t = self.slots[i]
+                    t.count = int(counts[k])
+                    t.pages_inspected = int(inspected[k])
+                    t.entries_matched = int(matched[k])
+                    if row_ids is not None:
+                        ids = row_ids[k]
+                        t.row_ids = ids[ids >= 0].copy()   # strip the pads
+                    t.done = True
+                    finished.append(t)
+                    self.slots[i] = None          # recycle the slot
+            self.stats.batches += 1
+            if not self.sharded:
+                # compact and fused dense modes dispatch the full batch
+                # width; the routed dispatch accounts per shard in
+                # _execute_sharded
+                self.stats.slots_filled += len(active)
+                self.stats.pad_slots += self.batch - len(active)
+            self.stats.served += len(finished)
+            return finished
 
     def _execute_dense(self, active: list[int]) -> tuple:
         """One full-width dense batch; pads fill the free slots."""
@@ -859,40 +866,44 @@ class QueryEngine:
         bucket = min(self._compact_bucket, cap)
         res = self.index.search_compact_batch(preds, max_selected=bucket,
                                               top_k=self.top_k)
-        counts = res.counts.cpu().numpy().copy()
-        inspected = res.pages_inspected.cpu().numpy()
-        matched = res.entries_matched.cpu().numpy()
-        trunc = res.truncated.cpu().numpy()
-        row_ids = res.row_ids.cpu().numpy().copy() if self.top_k else None
-        st = self.stats
-        st.compact_batches += 1
-        shards = getattr(self.index, "num_shards", 1)
-        self._account_compact_dispatch(res, bucket * shards)
-        needed = int(res.bucket_needed)
+        with span("hippo.engine.readback"):
+            counts = res.counts.cpu().numpy().copy()
+            inspected = res.pages_inspected.cpu().numpy()
+            matched = res.entries_matched.cpu().numpy()
+            trunc = res.truncated.cpu().numpy()
+            row_ids = (res.row_ids.cpu().numpy().copy() if self.top_k
+                       else None)
+            st = self.stats
+            st.compact_batches += 1
+            shards = getattr(self.index, "num_shards", 1)
+            self._account_compact_dispatch(res, bucket * shards)
+            needed = int(res.bucket_needed)
         if needed > bucket:
             self._compact_bucket = min(_pow2_at_least(needed), cap)
         bad = [i for i in active if trunc[i]]
         if bad:
-            st.compact_fallbacks += len(bad)
-            width = _pow2_at_least(max(len(bad), _FALLBACK_Q_MIN))
-            fb_preds = [self.slots[i].pred for i in bad]
-            fb_preds += [_EMPTY] * (width - len(bad))
-            fb = self.index.search_compact_batch(fb_preds, max_selected=cap,
-                                                 top_k=self.top_k)
-            st.slots_filled += len(bad)
-            st.pad_slots += width - len(bad)
-            self._account_compact_dispatch(fb, cap * shards)
-            if bool(fb.truncated[: len(bad)].any()):
-                raise RuntimeError(
-                    "compact fallback truncated at the full gather cap — "
-                    "the slab no longer covers the table (was the index "
-                    "mutated mid-batch?)")
-            fb_counts = fb.counts.cpu().numpy()
-            fb_ids = fb.row_ids.cpu().numpy() if row_ids is not None else None
-            for k, i in enumerate(bad):
-                counts[i] = fb_counts[k]
-                if row_ids is not None:
-                    row_ids[i] = fb_ids[k]
+            with span("hippo.engine.fallback"):
+                st.compact_fallbacks += len(bad)
+                width = _pow2_at_least(max(len(bad), _FALLBACK_Q_MIN))
+                fb_preds = [self.slots[i].pred for i in bad]
+                fb_preds += [_EMPTY] * (width - len(bad))
+                fb = self.index.search_compact_batch(
+                    fb_preds, max_selected=cap, top_k=self.top_k)
+                st.slots_filled += len(bad)
+                st.pad_slots += width - len(bad)
+                self._account_compact_dispatch(fb, cap * shards)
+                if bool(fb.truncated[: len(bad)].any()):
+                    raise RuntimeError(
+                        "compact fallback truncated at the full gather cap "
+                        "— the slab no longer covers the table (was the "
+                        "index mutated mid-batch?)")
+                fb_counts = fb.counts.cpu().numpy()
+                fb_ids = (fb.row_ids.cpu().numpy() if row_ids is not None
+                          else None)
+                for k, i in enumerate(bad):
+                    counts[i] = fb_counts[k]
+                    if row_ids is not None:
+                        row_ids[i] = fb_ids[k]
         st.compact_hits += len(active) - len(bad)
         return (counts[active], inspected[active], matched[active],
                 row_ids[active] if row_ids is not None else None)

@@ -5,13 +5,16 @@ on the card.
 
 Builds the sharded index ``chip_smoke.py`` builds (TPC-H SF10
 ``l_shipdate`` by default, 4 shards, H=400, D=0.2) and an unsharded
-``HippoIndex`` over the same column, serves one warm-up batch per engine (so
-the compact slab bucket has widened), then profiles one steady batch of 64
-predicates per engine: compact without row ids and with ``top_k=32``, dense
-on the HippoIndex, and routed and fused dense on the sharded index; then one
-single-query ``HippoIndex.search`` (a 100-day predicate, after a warm-up
-search) and the build of one shard (``core.index.build`` on shard 1's view:
-the bucket probe, the page bits and the host grouping scan); then the
+``HippoIndex`` over the same column, serves one warm-up batch per dense
+engine, then profiles one steady batch of 64 predicates per dense engine:
+on the HippoIndex, and routed and fused on the sharded index (the compact
+engine's batches are the benchmark's: ``python3 portbench/run.py
+--workload dbgen.scan --seed N --seconds S --trace 1`` traces seconds of
+them and puts each device-idle gap down to a stage of the read path, by
+the spans of ``repro_torch.spans``); then one single-query
+``HippoIndex.search`` (a 100-day predicate, after a warm-up search) and
+the build of one shard (``core.index.build`` on shard 1's view: the bucket
+probe, the page bits and the host grouping scan); then the
 maintenance of ``chip_smoke.py``'s phase 2c on the sharded index: one eager
 ``insert`` (after a warm-up insert), one ``insert_batch`` of ``--rows``/1000
 rows, and the ``vacuum`` after deleting one day; then the maintenance
@@ -93,16 +96,14 @@ def main() -> None:
     hidx = HippoIndex.create(table, resolution=400, density=0.2)
     print(f"{torch.cuda.get_device_name(0)}: {args.rows:,} rows, "
           f"{table.num_pages:,} pages")
-    for name, idx, kw in (("compact top_k=0", sidx, {}),
-                          ("compact top_k=32", sidx, {"top_k": 32}),
-                          ("dense HippoIndex", hidx, {"mode": "dense"}),
+    for name, idx, kw in (("dense HippoIndex", hidx, {"mode": "dense"}),
                           ("dense routed", sidx, {"mode": "dense"}),
                           ("dense fused", sidx, {"mode": "dense",
                                                  "sharded": False})):
         eng = QueryEngine(idx, batch=64, **kw)
         for p in _preds(rng, 64):
             eng.submit(p)
-        eng.run_batch()                     # warm-up: falls back and widens
+        eng.run_batch()                     # warm-up
         for p in _preds(rng, 64):
             eng.submit(p)
         torch.cuda.synchronize()
