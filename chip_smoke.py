@@ -602,8 +602,7 @@ def main() -> int:
     shards = sidx.state.shards
     keys, valid = sidx._slabs()
     batch = preds[:BATCH]
-    qb = sidx._query_bitmaps(batch)
-    blo, bhi = intervals(batch, dev)
+    qb, blo, bhi = sidx._query_bitmaps(batch)
     live = hix._live_slots(shards)
     match = bf_ops.batch_filter_sharded(qb, shards.bitmaps, live)
     page_mask = hix._expand_page_mask(shards, match, keys.shape[1])
@@ -696,6 +695,21 @@ def main() -> int:
                 bounds, vals, right=True).sub_(1).clamp_(0, RESOLUTION - 1),
                 20),
             "bound_ms": vb, "bound_by": vhow}))
+    # C's rows entry as predicate conversion launches it: the batch's 2Q
+    # endpoints under every shard's bounds row in one launch
+    rows = shards.bounds.contiguous()
+    exact(torch, "bucketize rows at the 2Q endpoints",
+          bk_ops.bucketize_rows(ends, rows, RESOLUTION, True),
+          bk_ops.bucketize_rows_ref(ends, rows, RESOLUTION, True))
+    vb, vhow = bound_ms((rows.shape[0] + 1) * ends.numel() * 4
+                        + rows.numel() * 4, 0)
+    print("bucketize rows at the 2Q endpoints: " + json.dumps({
+        "rows": rows.shape[0], "n": ends.numel(),
+        "ms": time_ms(torch, lambda: bk_ops.bucketize_rows(
+            ends, rows, RESOLUTION, True), 20),
+        "graph_ms": graph_ms(torch, lambda: bk_ops.bucketize_rows(
+            ends, rows, RESOLUTION, True), 20),
+        "bound_ms": vb, "bound_by": vhow}))
     # C at the inputs phase 2c gave it, at their own offsets within 16 B
     for (n, mod), (vals, pbounds, h) in sorted(probes.items()):
         vals = at_offset(torch, vals, mod // 4)
@@ -2155,7 +2169,7 @@ def placement_phase(torch, K, hix, intervals, sidx, preds) -> None:
     dev = sidx.device
     keys, valid = sidx._slabs()
     batches = [preds[i:i + BATCH] for i in range(0, len(preds), BATCH)]
-    args = [(sidx._query_bitmaps(b), *intervals(b, dev)) for b in batches]
+    args = [sidx._query_bitmaps(b) for b in batches]
     cap = sidx.gather_cap
 
     def run(st, k, v, a):
@@ -2946,7 +2960,11 @@ def compare_designs(torch, _build, csrc: Path, cases: dict,
     Cases named in ``graphed`` (launches short enough that the host decides
     a timed loop) are also timed in turns by ``graph_ms``."""
     t0 = time.perf_counter()
-    signatures = dict(_build.SIGNATURES)
+    # the entry points the sources in csrc have (a design before the
+    # bucket probe's rows entry lacks it)
+    text = "".join(p.read_text() for p in _build.sources(csrc))
+    signatures = {name: argtypes for name, argtypes
+                  in _build.SIGNATURES.items() if f"{name}(" in text}
     if not nan_flag(csrc):
         signatures["hippo_bucketize"] = [
             a for i, a in enumerate(signatures["hippo_bucketize"]) if i != 5]

@@ -28,9 +28,10 @@ dense and compact batches add its staged rows to their counts, and it sets
 ``swap_in_flight`` while a drain swaps a shard, which every query and
 maintenance surface refuses. Bounds epochs: every shard carries its own
 bounds row; a drift remap moves shards onto new bounds one drain unit at a
-time, bumping ``bounds_epochs[s]``, and predicates convert per distinct
-bounds row into (S, Q, W) query bitmaps, so counts stay exact while shards
-sit on different epochs.
+time, bumping ``bounds_epochs[s]``, and a batch's predicates convert
+under each shard's own bounds row into (S, Q, W) query bitmaps (one
+bucket-probe launch for every row), so counts stay exact while shards sit
+on different epochs.
 """
 from __future__ import annotations
 
@@ -46,9 +47,9 @@ from repro_torch.core import index as hix
 from repro_torch.core import learned as ln
 from repro_torch.core.hippo import (MaintenanceCounters, sample_histogram,
                                     sample_keys)
-from repro_torch.core.predicate import (Predicate, _nonempty, intervals,
+from repro_torch.core.predicate import (Predicate, intervals,
                                         interval_bitmaps_sharded,
-                                        to_bucket_bitmaps)
+                                        to_bucket_bitmaps, upload_intervals)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.batch_filter import batch_filter_sharded
 from repro_torch.spans import span
@@ -243,16 +244,16 @@ class ShardedHippoIndex:
 
     # -- query ---------------------------------------------------------------
 
-    def _query_bitmaps(self, preds: list[Predicate]) -> torch.Tensor:
+    def _query_bitmaps(self, preds: list[Predicate]
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(S, Q, W) packed query bitmaps, row s converted under shard s's
-        bounds (one bucket-probe launch per distinct bounds row)."""
-        if not preds:
-            return bm.zeros(self.cfg.resolution, self.spec.num_shards, 0,
-                            device=self.device)
-        los, his = intervals(preds, self.device)
-        nonempty = torch.from_numpy(_nonempty(preds)).to(self.device)
-        return interval_bitmaps_sharded(self.state.shards.bounds, los, his,
+        bounds, and the batch's (Q,) los and his, from one upload and one
+        bucket-probe launch over every shard's bounds row: no host
+        synchronisation."""
+        los, his, nonempty = upload_intervals(preds, self.device)
+        qbms = interval_bitmaps_sharded(self.state.shards.bounds, los, his,
                                         nonempty)
+        return qbms, los, his
 
     def search_batch(self, preds: list[Predicate]) -> hix.BatchSearchResult:
         """Fused dense path (``core.index.search_many_sharded``): every shard
@@ -261,8 +262,7 @@ class ShardedHippoIndex:
         unsharded ``HippoIndex.search_batch``'s; with a writer attached they
         also include its live staged rows."""
         self._check_swap_guard()
-        qbms = self._query_bitmaps(preds)
-        los, his = intervals(preds, self.device)
+        qbms, los, his = self._query_bitmaps(preds)
         keys, valid = self._slabs()
         if self.staging is not None and self.staging.staged_rows:
             vals, live = self.staging.device_buffers()
@@ -285,8 +285,7 @@ class ShardedHippoIndex:
         they never enter row ids and cannot truncate."""
         self._check_swap_guard()
         with span("hippo.index.convert"):
-            qbms = self._query_bitmaps(preds)
-            los, his = intervals(preds, self.device)
+            qbms, los, his = self._query_bitmaps(preds)
         keys, valid = self._slabs()
         if self.staging is not None and self.staging.staged_rows:
             vals, live = self.staging.device_buffers()
@@ -325,7 +324,7 @@ class ShardedHippoIndex:
     def plan_batch(self, preds: list[Predicate]
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                               np.ndarray]:
-        """One predicate conversion (per bounds epoch) for a routed batch.
+        """One predicate conversion for a routed batch.
 
         Returns (qbms (S, Q, W), los (Q,), his (Q,)) on the index's device
         and the host bool matrix ``match`` (Q, S): the joint-bucket test of
@@ -336,8 +335,7 @@ class ShardedHippoIndex:
         comes to the host.
         """
         self._check_swap_guard()
-        qbms = self._query_bitmaps(preds)                       # (S, Q, W)
-        los, his = intervals(preds, self.device)
+        qbms, los, his = self._query_bitmaps(preds)             # (S, Q, W)
         summaries = self.state.summaries[:, None, :].contiguous()  # (S, 1, W)
         live = torch.ones(summaries.shape[:2], dtype=torch.bool,
                           device=self.device)

@@ -3,8 +3,10 @@
 
 Every predicate reduces to a closed interval [lo, hi] over the attribute, so
 its bucket bitmap is a contiguous run of set bits between the buckets of its
-two endpoints. Endpoint bucketing goes through the bucket-probe kernel: one
-launch per distinct bounds row (both endpoints of every predicate in it).
+two endpoints. A batch's endpoints reach the device in one copy from
+page-locked memory (``upload_intervals``), and are bucketed by one launch of
+the bucket-probe kernel's rows entry under every shard's bounds row at once:
+the conversion never waits on the device.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from repro_torch.core import bitmap as bm
 from repro_torch.core.histogram import Histogram
 from repro_torch.device import resolve_device
-from repro_torch.kernels.bucketize import bucketize_values
+from repro_torch.kernels.bucketize import bucketize_rows
 
 _INF = float("inf")
 
@@ -76,16 +78,40 @@ def _nonempty(preds: Sequence[Predicate]) -> np.ndarray:
     return np.asarray([not p.empty for p in preds], bool)
 
 
-def intervals(preds: Sequence[Predicate], device=None
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(los, his) float32 tensors for a batch of predicates.
+def upload_intervals(preds: Sequence[Predicate], device=None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(los, his) float32 and ``nonempty`` bool tensors for a batch of
+    predicates, on ``device`` in one host-to-device copy.
 
     Infinities are clamped to the float32 range so the inspection compares
-    stay finite; an empty predicate keeps lo > hi and matches nothing.
+    stay finite; an empty predicate keeps lo > hi and matches nothing, and
+    ``nonempty`` is taken from the predicates themselves (rounding to
+    float32 can make an empty interval read lo == hi). The three are laid
+    out on the host in one byte buffer, page-locked for a CUDA device, and
+    copied with ``non_blocking=True``, so no call waits on the device; the
+    caching host allocator keeps a pinned block from reuse until its copy
+    has completed.
     """
-    los, his = _finite_bounds(preds)
     dev = resolve_device(device)
-    return torch.from_numpy(los).to(dev), torch.from_numpy(his).to(dev)
+    q = len(preds)
+    los, his = _finite_bounds(preds)
+    host = torch.empty((9 * q,), dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda" and q > 0)
+    buf = host.numpy()
+    buf[: 4 * q] = los.view(np.uint8)
+    buf[4 * q: 8 * q] = his.view(np.uint8)
+    buf[8 * q:] = _nonempty(preds).view(np.uint8)
+    up = host.to(dev, non_blocking=True)
+    return (up[: 4 * q].view(torch.float32),
+            up[4 * q: 8 * q].view(torch.float32), up[8 * q:].view(torch.bool))
+
+
+def intervals(preds: Sequence[Predicate], device=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(los, his) float32 tensors for a batch of predicates
+    (``upload_intervals`` without ``nonempty``)."""
+    los, his, _ = upload_intervals(preds, device)
+    return los, his
 
 
 def interval_bitmaps(bounds: torch.Tensor, los: torch.Tensor,
@@ -94,31 +120,29 @@ def interval_bitmaps(bounds: torch.Tensor, los: torch.Tensor,
     """Intervals -> (Q, W) packed query bitmaps under one bounds row.
 
     bounds: (H+1,) f32; los/his: (Q,) finite f32; nonempty: (Q,) bool
-    (False rows produce all-zero bitmaps). Both endpoints are bucketed in
-    one kernel launch; a NaN endpoint lands in bucket H-1, as the
-    reference's ``searchsorted`` puts it.
+    (False rows produce all-zero bitmaps): ``interval_bitmaps_sharded``
+    with one row.
     """
-    h = bounds.shape[-1] - 1
-    q = los.shape[0]
-    ids = bucketize_values(torch.cat([los, his]).contiguous(),
-                           bounds.contiguous(), h)
-    words = bm.range_mask(h, ids[:q], ids[q:])
-    return torch.where(nonempty[:, None], words, 0)
+    return interval_bitmaps_sharded(bounds[None], los, his, nonempty)[0]
 
 
 def interval_bitmaps_sharded(bounds: torch.Tensor, los: torch.Tensor,
                              his: torch.Tensor, nonempty: torch.Tensor
                              ) -> torch.Tensor:
-    """``interval_bitmaps`` per shard: (S, H+1) stacked bounds -> (S, Q, W).
+    """Intervals -> (S, Q, W) packed query bitmaps, row s under shard s's
+    bounds ``bounds[s]`` of the stacked (S, H+1).
 
-    Row s converts the batch under shard s's boundary set. Shards that share
-    a bounds row (one epoch) share one conversion: one bucket-probe launch
-    per distinct row.
+    Both endpoints of every predicate are bucketed under every row in one
+    launch of the bucket probe's rows entry; a NaN endpoint lands in bucket
+    H-1, as the reference's ``searchsorted`` puts it. Each row is converted
+    under its own bounds, so shards on different bounds epochs (a drift
+    remap partly drained) need no grouping, and nothing is read back.
     """
-    rows, inverse = torch.unique(bounds, dim=0, return_inverse=True)
-    per_row = torch.stack([interval_bitmaps(rows[r], los, his, nonempty)
-                           for r in range(rows.shape[0])])
-    return per_row[inverse].contiguous()
+    h = bounds.shape[-1] - 1
+    q = los.shape[0]
+    ids = bucketize_rows(torch.cat([los, his]), bounds.contiguous(), h)
+    words = bm.range_mask(h, ids[:, :q], ids[:, q:])
+    return torch.where(nonempty[None, :, None], words, 0)
 
 
 def to_bucket_bitmap(pred: Predicate, hist: Histogram) -> torch.Tensor:
@@ -131,12 +155,8 @@ def to_bucket_bitmaps(preds: Sequence[Predicate], hist: Histogram
                       ) -> torch.Tensor:
     """Batched §3.1 conversion: Q predicates -> (Q, W) packed query bitmaps
     on the histogram's device; empty predicates give all-zero rows."""
-    dev = hist.bounds.device
-    if not preds:
-        return bm.zeros(hist.resolution, 0, device=dev)
-    los, his = intervals(preds, dev)
-    nonempty = torch.from_numpy(_nonempty(preds)).to(dev)
-    return interval_bitmaps(hist.bounds, los, his, nonempty)
+    return interval_bitmaps(hist.bounds,
+                            *upload_intervals(preds, hist.bounds.device))
 
 
 def matches(pred: Predicate, values: torch.Tensor) -> torch.Tensor:

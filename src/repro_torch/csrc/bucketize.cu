@@ -10,8 +10,18 @@
 // takes resolution - 1 (one select in the same pass); with it clear, the
 // kernel keeps the TPU kernel's formula. Callers: the index build and the
 // maintenance paths (every tuple of a shard, through a view that starts at
-// any 4 B boundary; inserted values) and predicate conversion (the 2Q
-// endpoints of a batch), all with `nan_last` set.
+// any 4 B boundary; inserted values) through `hippo_bucketize`, and
+// predicate conversion (the 2Q endpoints of a batch under every shard's
+// bounds row) through `hippo_bucketize_rows`, all with `nan_last` set.
+//
+// The rows entry probes one set of values under each of S bounds rows,
+// (S, H+1) -> ids (S, N): the grid's second axis runs over the rows, and
+// each block copies its own row into shared memory, exactly as the 1-D
+// launch does (which is the rows entry at S = 1). Row s is converted under
+// bounds[s] whatever the other rows hold, so shards on different bounds
+// epochs in the middle of a drift remap need no grouping: a batch of 64
+// predicates under 4 shards is 4 x 128 lookups in one launch, with no
+// distinct-row search on the device and nothing read back by the host.
 //
 // What bounds it on the H100: bytes. Each value is read once (4 B) and its
 // id written once (4 B); the H+1 bounds are a few KB. At the build's shape
@@ -156,7 +166,8 @@ __device__ __forceinline__ int bucket_id(const Probe& pr, float v,
   return isnan(v) ? nan_id : min(max(id, 0), resolution - 1);
 }
 
-// values[head .. head + nvec * V) in vectors of V, the rest one by one.
+// values[head .. head + nvec * V) in vectors of V, the rest one by one,
+// under bounds row blockIdx.y into out row blockIdx.y.
 template <int V, bool kTable>
 __global__ void __launch_bounds__(kThreads)
     bucketize_kernel(const float* __restrict__ values, int64_t n,
@@ -165,6 +176,8 @@ __global__ void __launch_bounds__(kThreads)
                      int nan_id, int* __restrict__ out) {
   using F = typename Vec<V>::F;
   using I = typename Vec<V>::I;
+  bounds += (int64_t)blockIdx.y * nb;     // this block's row
+  out += (int64_t)blockIdx.y * n;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sb = reinterpret_cast<float*>(smem);
   int* tab = reinterpret_cast<int*>(sb + nb);
@@ -203,8 +216,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int V, bool kTable>
 cudaError_t launch(const float* values, int64_t n, int64_t head, int64_t nvec,
-                   const float* bounds, int nb, int resolution, int nan_id,
-                   int* out, int64_t blocks, cudaStream_t stream) {
+                   const float* bounds, int rows, int nb, int resolution,
+                   int nan_id, int* out, int64_t blocks, cudaStream_t stream) {
   auto kernel = bucketize_kernel<V, kTable>;
   const size_t smem =
       (size_t)nb * 4 + (kTable ? (size_t)(kBuckets + 2) * 4 : 0);
@@ -215,7 +228,7 @@ cudaError_t launch(const float* values, int64_t n, int64_t head, int64_t nvec,
                                   (int)smem)) != cudaSuccess) {
     return err;
   }
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  kernel<<<dim3((unsigned)blocks, (unsigned)rows), kThreads, smem, stream>>>(
       values, n, head, nvec, bounds, nb, resolution, nan_id, out);
   return cudaGetLastError();
 }
@@ -239,8 +252,8 @@ inline cudaError_t sm_count(int* sms) {
 
 template <int V>
 cudaError_t launch_width(const float* values, int64_t n, const float* bounds,
-                         int nb, int resolution, int nan_id, int* out,
-                         cudaStream_t stream) {
+                         int rows, int nb, int resolution, int nan_id,
+                         int* out, cudaStream_t stream) {
   // head: values before the first address aligned to V floats
   const int64_t mis = (int64_t)((reinterpret_cast<uintptr_t>(values) / 4) %
                                 V);
@@ -256,38 +269,49 @@ cudaError_t launch_width(const float* values, int64_t n, const float* bounds,
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
   if (nvec * V >= (int64_t)kTableValues * kThreads * resident) {
-    return launch<V, true>(values, n, head, nvec, bounds, nb, resolution,
-                           nan_id, out, blocks, stream);
+    return launch<V, true>(values, n, head, nvec, bounds, rows, nb,
+                           resolution, nan_id, out, blocks, stream);
   }
-  return launch<V, false>(values, n, head, nvec, bounds, nb, resolution,
+  return launch<V, false>(values, n, head, nvec, bounds, rows, nb, resolution,
                           nan_id, out, blocks, stream);
 }
 
 }  // namespace
 
-extern "C" int hippo_bucketize(const float* values, int64_t n,
-                               const float* bounds, int nb, int resolution,
-                               int nan_last, int* out, cudaStream_t stream) {
-  if (n <= 0 || nb <= 0) return (int)cudaGetLastError();
+// Ids of values (N,) under each row of bounds (rows, nb), into out (rows, N).
+extern "C" int hippo_bucketize_rows(const float* values, int64_t n,
+                                    const float* bounds, int rows, int nb,
+                                    int resolution, int nan_last, int* out,
+                                    cudaStream_t stream) {
+  if (n <= 0 || nb <= 0 || rows <= 0) return (int)cudaGetLastError();
+  if (rows > 65535) return (int)cudaErrorInvalidValue;   // grid's y axis
   const int nan_id = nan_last ? resolution - 1 : 0;
-  // The widest vector at which values and ids share their offset.
+  // The widest vector at which values and ids share their offset, in every
+  // out row: row s starts s * n ids after the first.
   const uintptr_t d = reinterpret_cast<uintptr_t>(values) ^
                       reinterpret_cast<uintptr_t>(out);
   cudaError_t err;
   if (n < kSmall) {   // one value a thread: the shortest chain per thread
-    err = launch_width<1>(values, n, bounds, nb, resolution, nan_id, out,
-                          stream);
-  } else if ((d & 15) == 0) {
-    err = launch_width<4>(values, n, bounds, nb, resolution, nan_id, out,
-                          stream);
-  } else if ((d & 7) == 0) {
-    err = launch_width<2>(values, n, bounds, nb, resolution, nan_id, out,
-                          stream);
+    err = launch_width<1>(values, n, bounds, rows, nb, resolution, nan_id,
+                          out, stream);
+  } else if ((d & 15) == 0 && (rows == 1 || n % 4 == 0)) {
+    err = launch_width<4>(values, n, bounds, rows, nb, resolution, nan_id,
+                          out, stream);
+  } else if ((d & 7) == 0 && (rows == 1 || n % 2 == 0)) {
+    err = launch_width<2>(values, n, bounds, rows, nb, resolution, nan_id,
+                          out, stream);
   } else {
-    err = launch_width<1>(values, n, bounds, nb, resolution, nan_id, out,
-                          stream);
+    err = launch_width<1>(values, n, bounds, rows, nb, resolution, nan_id,
+                          out, stream);
   }
   return (int)err;
+}
+
+extern "C" int hippo_bucketize(const float* values, int64_t n,
+                               const float* bounds, int nb, int resolution,
+                               int nan_last, int* out, cudaStream_t stream) {
+  return hippo_bucketize_rows(values, n, bounds, 1, nb, resolution, nan_last,
+                              out, stream);
 }
 
 // Error text for the codes the C entry points of every csrc file return.

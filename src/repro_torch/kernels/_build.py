@@ -41,6 +41,9 @@ _I32 = ctypes.c_int
 SIGNATURES = {
     # values, n, bounds, num_bounds, resolution, nan_last, out, stream
     "hippo_bucketize": [_PTR, _I64, _PTR, _I32, _I32, _I32, _PTR, _PTR],
+    # values, n, bounds, rows, num_bounds, resolution, nan_last, out, stream
+    "hippo_bucketize_rows": [_PTR, _I64, _PTR, _I32, _I32, _I32, _I32, _PTR,
+                             _PTR],
     # queries, entries, live, S, Q, E, W, out, stream
     "hippo_batch_filter_sharded": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32,
                                    _PTR, _PTR],
@@ -178,7 +181,9 @@ class Kernel:
     ``launches`` counts the launches made through ``launch``; nothing else
     touches it, so a run can show that its path went through the kernel.
     ``source`` and ``replaces`` name the CUDA file and the TPU kernel
-    (file:line) it replaces.
+    (file:line) it replaces. A kernel with a second entry point of the same
+    file (the bucket probe's rows entry) launches it through ``launch``
+    too, under the same counter.
     """
 
     def __init__(self, symbol: str, source: str, replaces: str):
@@ -187,9 +192,12 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
 
-    def launch(self, *args, on: torch.Tensor) -> None:
-        """Call the entry point with ``args`` on the current stream of
-        ``on``'s device; raise if the launch reported a CUDA error."""
-        err = getattr(library(), self.symbol)(*args, stream_of(on))
-        check(err, self.symbol)
+    def launch(self, *args, on: torch.Tensor, entry: str | None = None
+               ) -> None:
+        """Call the entry point (``entry``, by default ``symbol``) with
+        ``args`` on the current stream of ``on``'s device; raise if the
+        launch reported a CUDA error."""
+        entry = entry or self.symbol
+        err = getattr(library(), entry)(*args, stream_of(on))
+        check(err, entry)
         self.launches += 1

@@ -1,1 +1,2 @@
-from repro_torch.kernels.bucketize.ops import bucketize_values  # noqa: F401
+from repro_torch.kernels.bucketize.ops import (  # noqa: F401
+    bucketize_rows, bucketize_values)

@@ -4,7 +4,9 @@
 in chunks of values so the (chunk, H+1) compare stays small; with
 ``nan_last`` (the default) a NaN value gets H - 1 instead of the formula's
 0. It is the
-CPU path of ``ops.bucketize_values`` and the CUDA kernel's oracle.
+CPU path of ``ops.bucketize_values`` and the CUDA kernel's oracle;
+``bucketize_rows_ref`` applies it under each row of stacked bounds, the CPU
+path of ``ops.bucketize_rows``.
 """
 from __future__ import annotations
 
@@ -25,4 +27,16 @@ def bucketize_ref(values: torch.Tensor, bounds: torch.Tensor,
         out[i:i + step] = (cnt - 1).clamp(0, resolution - 1).to(torch.int32)
     if nan_last:
         out[values.isnan()] = resolution - 1
+    return out
+
+
+def bucketize_rows_ref(values: torch.Tensor, bounds: torch.Tensor,
+                       resolution: int, nan_last: bool = True
+                       ) -> torch.Tensor:
+    """values (N,) f32; bounds (S, H+1) f32, each row nondecreasing ->
+    (S, N) int32: row s is ``bucketize_ref`` under ``bounds[s]``."""
+    out = torch.empty((bounds.shape[0], values.numel()), dtype=torch.int32,
+                      device=values.device)
+    for s in range(bounds.shape[0]):
+        out[s] = bucketize_ref(values, bounds[s], resolution, nan_last)
     return out

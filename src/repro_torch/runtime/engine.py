@@ -802,8 +802,8 @@ class QueryEngine:
     def _execute_sharded(self, active: list[int]) -> tuple:
         """Routed dispatch with summary pruning and count-reduce.
 
-        The batch converts once per bounds epoch (``plan_batch``, (S, Q, W)
-        on the device); shard s then runs ``search_batch_shard_arrays`` over
+        The batch converts once (``plan_batch``, (S, Q, W) on the device, row s
+        by shard s's bounds); shard s runs ``search_batch_shard_arrays`` over
         only the queries whose bitmaps share a bucket with its summary,
         padded with zero bitmaps and empty (lo=1, hi=0) intervals to a
         power-of-two width of at least ``_SHARD_BUCKET_MIN``. A pruned

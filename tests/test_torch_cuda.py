@@ -23,6 +23,7 @@ from repro_torch.core.predicate import Predicate
 from repro_torch.kernels import _build
 from repro_torch.kernels.batch_filter import ops as bf_ops
 from repro_torch.kernels.bitmap_and import ops as ba_ops
+from repro_torch.kernels.bucketize import kernel as bk_kernel
 from repro_torch.kernels.bucketize import ops as bk_ops
 from repro_torch.kernels.compact_inspect import ops as ci_ops
 from repro_torch.kernels.page_inspect import kernel as pi_kernel
@@ -474,6 +475,103 @@ def test_bucketize_kernel_nan_last_equals_plain(kind, nan_last):
                 assert torch.equal(got.cpu(), want), (h, n, off)
 
 
+# The rows entry (predicate conversion's launch): S rows of bounds of mixed
+# kinds over one set of values, NaN among them, with the nan_last flag set
+# and clear; N of a batch's 2Q endpoints, N at the vector widths where every
+# out row keeps the values' offset (N % 4 == 0, N % 2 == 0) and where it
+# does not (odd N), and the rank table's launch; row s against
+# bucketize_ref under bounds[s] alone, in one launch.
+@needs_cuda
+@pytest.mark.parametrize("nan_last", [False, True])
+@pytest.mark.parametrize("s", [1, 4])
+def test_bucketize_rows_kernel_equals_plain_row_by_row(s, nan_last):
+    nans = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFFFFFFF],
+                    np.uint32).view(np.float32)
+    kinds = ["increasing", "tied", "equal", "infinite ends", "signed zeros"]
+    for h in (1, 16, 400):
+        rng = np.random.default_rng(h + s)
+        b = np.stack([_bounds(kinds[(r + h) % 5], rng, h) for r in range(s)])
+        pool = np.concatenate([nans, EDGE_VALUES, b.ravel()]).astype(
+            np.float32)
+        bounds = torch.from_numpy(b).cuda()
+        for n in (1, 5, 128, 4097, 4098, 8192, 4_500_000, 4_500_001):
+            vals = torch.from_numpy(rng.choice(pool, n).astype(np.float32))
+            want = torch.stack([bk_ops.bucketize_ref(vals.cuda(), bounds[r],
+                                                     h, nan_last)
+                                for r in range(s)]).cpu()
+            for off in (0, 1, 2):
+                before = bk_kernel.KERNEL.launches
+                got = bk_ops.bucketize_rows(_at_offset(vals, off), bounds, h,
+                                            nan_last)
+                torch.cuda.synchronize()
+                assert bk_kernel.KERNEL.launches == before + 1
+                assert torch.equal(got.cpu(), want), (h, n, off)
+
+
+def _conversion_pair(num_shards=4):
+    vals = np.random.default_rng(5).integers(0, 2555, 40_000).astype(
+        np.float32)
+    return [ShardedHippoIndex.create(PagedTable.from_values(vals, 50),
+                                     num_shards=num_shards, device=dev)
+            for dev in ("cuda", "cpu")]
+
+
+def _same_bits(got, want):
+    """Equal bit for bit (a NaN endpoint equals itself)."""
+    return torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+
+
+def _conversion_batch(seed, q=64):
+    rng = np.random.default_rng(seed)
+    preds = [Predicate.between(float(lo), float(lo + w)) for lo, w in
+             zip(rng.integers(0, 2500, q), rng.choice([0, 29, 89, 364], q))]
+    preds[:4] = [Predicate.between(9.0, 1.0), Predicate(),
+                 Predicate.between(float("nan"), 5.0), Predicate.greater(2000)]
+    return preds
+
+
+@needs_cuda
+def test_convert_stage_makes_no_host_sync():
+    """``hippo.index.convert`` of ``search_compact_batch`` (the
+    ``_query_bitmaps`` call) on a card index runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, and equals the CPU's."""
+    card, cpu = _conversion_pair()
+    preds = _conversion_batch(1)
+    card._query_bitmaps(preds)          # builds the library, pins a block
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = card._query_bitmaps(preds)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g, w in zip(got, cpu._query_bitmaps(preds)):
+        assert _same_bits(g, w)
+
+
+@needs_cuda
+def test_back_to_back_batches_keep_their_own_counts():
+    """Two compact batches with different predicates enqueued back to back
+    behind ~0.1 s of device work each return their own exact counts: the
+    first batch's page-locked upload is not reused by the second while its
+    copy waits on the stream."""
+    card, cpu = _conversion_pair()
+    batches = [_conversion_batch(2), _conversion_batch(3)]
+    cap = card.gather_cap
+    card.search_compact_batch(batches[0], max_selected=cap)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    qbms = [card._query_bitmaps(b) for b in batches]
+    torch.cuda._sleep(200_000_000)
+    got = [card.search_compact_batch(b, max_selected=cap, top_k=8)
+           for b in batches]
+    for b, g, q in zip(batches, got, qbms):
+        w = cpu.search_compact_batch(b, max_selected=cap, top_k=8)
+        for f in w._fields:
+            assert torch.equal(getattr(g, f).cpu(), getattr(w, f)), f
+        for gq, wq in zip(q, cpu._query_bitmaps(b)):
+            assert _same_bits(gq, wq)
+
+
 def _maintenance_stream(idx, rng):
     """Eager inserts, a batch across the partial page and new pages, a
     delete and its vacuum; returns what a caller can observe."""
@@ -897,7 +995,6 @@ def test_placed_search_on_a_four_entry_card_mesh():
     searched where it lives and summed; every field equals the unplaced
     search on the card and the same index on the CPU."""
     from repro_torch.core import index as hix
-    from repro_torch.core.predicate import intervals
     from repro_torch.launch.mesh import make_mesh_compat, make_shard_mesh
     from repro_torch.launch.shardings import PlacedTensor, place_sharded
     values = np.random.default_rng(41).integers(0, 2555, 20000).astype(
@@ -910,8 +1007,7 @@ def test_placed_search_on_a_four_entry_card_mesh():
         idx = ShardedHippoIndex.create(PagedTable.from_values(values, 50),
                                        num_shards=4, device=dev)
         keys, valid = idx._slabs()
-        qbms = idx._query_bitmaps(preds)
-        los, his = intervals(preds, idx.device)
+        qbms, los, his = idx._query_bitmaps(preds)
         meshes = [None, make_mesh_compat((4,), ("data",), [idx.device] * 4)]
         if dev == "cuda":
             meshes.append(make_shard_mesh(4))

@@ -13,17 +13,21 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from repro.core import index as jix
 from repro.core import partition as jpart
+from repro.core import predicate as jpredicate
 from repro.core.partition import ShardedHippoIndex as JSharded
 from repro.core.predicate import Predicate as JPred
 from repro.core.predicate import intervals as jintervals
 from repro.storage.table import PagedTable as JTable
 from repro_torch import convert
 from repro_torch.core import index as tix
+from repro_torch.core import partition as tpart
+from repro_torch.core import predicate as tpredicate
 from repro_torch.core.partition import ShardedHippoIndex as TSharded
 from repro_torch.core.predicate import Predicate as TPred
-from repro_torch.core.predicate import intervals as tintervals
 from repro_torch.storage.table import PagedTable as TTable
 
 RESULT_FIELDS = jix.CompactBatchResult._fields
@@ -101,7 +105,89 @@ def shipdate_pair():
 def test_query_bitmaps_equal_reference(shipdate_pair):
     j, t = shipdate_pair
     jp, tp = _preds(1)
-    _assert_equal(j._query_bitmaps(jp), t._query_bitmaps(tp), "qbms")
+    _assert_equal(j._query_bitmaps(jp), t._query_bitmaps(tp)[0], "qbms")
+
+
+def _bounds_rows(kind: str, h: int = 64) -> np.ndarray:
+    """(4, H+1) stacked bounds: one row for every shard, two epochs (shard 0
+    on a remap's new row after one drain unit), or four distinct rows."""
+    rng = np.random.default_rng(h)
+    rows = [np.cumsum(rng.random(h + 1) * 40 + 0.5).astype(np.float32) - 50
+            for _ in range(4)]
+    if kind == "equal":
+        rows = [rows[0]] * 4
+    elif kind == "two epochs":
+        rows = [rows[1]] + [rows[0]] * 3
+    return np.stack(rows)
+
+
+def _conversion_preds(kind: str) -> list:
+    nan = float("nan")
+    pairs = {"q0": [], "q1": [(100.0, 900.0)],
+             "empty": [(5.0, 1.0), (3.0, 2.0), (1e9, -1e9)],
+             "edges": [(-np.inf, np.inf), (-np.inf, 0.0), (700.0, np.inf),
+                       (nan, 10.0), (10.0, nan), (nan, nan), (5.0, 1.0),
+                       (-1e9, -1e8), (1e8, 1e9), (12.5, 12.5),
+                       (-3.4e38, 3.4e38), (0.0, 2000.0)]}[kind]
+    return [TPred.between(lo, hi) for lo, hi in pairs]
+
+
+@pytest.mark.parametrize("preds_kind", ["edges", "empty", "q0", "q1"])
+@pytest.mark.parametrize("rows_kind", ["equal", "distinct", "two epochs"])
+def test_sharded_conversion_equals_each_rows_own(rows_kind, preds_kind,
+                                                 monkeypatch):
+    """Row s of the sharded conversion is the batch converted under
+    ``bounds[s]`` alone, and the reference's per-shard conversion, bit for
+    bit, whether the shards share one bounds row or not; the conversion
+    calls no ``torch.unique``."""
+    def no_unique(*a, **k):
+        raise AssertionError("the conversion called torch.unique")
+    bounds = _bounds_rows(rows_kind)
+    preds = _conversion_preds(preds_kind)
+    tb = torch.from_numpy(bounds)
+    los, his, nonempty = tpredicate.upload_intervals(preds, "cpu")
+    monkeypatch.setattr(torch, "unique", no_unique)
+    got = tpredicate.interval_bitmaps_sharded(tb, los, his, nonempty)
+    each = torch.stack([tpredicate.interval_bitmaps(tb[s], los, his, nonempty)
+                        for s in range(tb.shape[0])])
+    assert got.dtype == torch.int32 and torch.equal(got, each)
+    want = jpredicate.interval_bitmaps_sharded(
+        jnp.asarray(bounds), jnp.asarray(los.numpy()),
+        jnp.asarray(his.numpy()), jnp.asarray(nonempty.numpy()))
+    _assert_equal(want, got, "qbms")
+    assert np.array_equal(nonempty.numpy(), [not p.empty for p in preds])
+
+
+@pytest.mark.parametrize("method", ["search_compact_batch", "search_batch",
+                                    "plan_batch"])
+def test_sharded_batch_converts_with_one_upload(shipdate_pair, method,
+                                                monkeypatch):
+    """Each sharded batch uploads its endpoints once (``intervals`` and
+    ``upload_intervals`` together called once) and calls no
+    ``torch.unique``; its results equal the reference's."""
+    j, t = shipdate_pair
+    jp, tp = _preds(7)
+    calls = []
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            calls.append(fn.__name__)
+            return fn(*a, **k)
+        return wrapper
+
+    def no_unique(*a, **k):
+        raise AssertionError("the conversion called torch.unique")
+    monkeypatch.setattr(tpart, "intervals", counted(tpart.intervals))
+    monkeypatch.setattr(tpart, "upload_intervals",
+                        counted(tpart.upload_intervals))
+    monkeypatch.setattr(torch, "unique", no_unique)
+    kw = ({"max_selected": j.gather_cap, "top_k": 8}
+          if method == "search_compact_batch" else {})
+    got = getattr(t, method)(tp, **kw)
+    assert calls == ["upload_intervals"]
+    want = getattr(j, method)(jp, **kw)
+    for w, g in zip(want, got):
+        _assert_equal(w, g, method)
 
 
 @pytest.mark.parametrize("max_selected,top_k", [(3, 0), (3, 8), (16, 0),
@@ -124,9 +210,9 @@ def test_search_compact_many_unsharded_equals_reference():
     jst = jpart.shard_state(j.state.shards, 0)
     tst = tix.HippoState(*(f[0] for f in t.state.shards))
     jq = j._query_bitmaps(jp)[0]
-    tq = t._query_bitmaps(tp)[0]
+    tq, tlo, thi = t._query_bitmaps(tp)
+    tq = tq[0]
     jlo, jhi = jintervals(jp)
-    tlo, thi = tintervals(tp, "cpu")
     jk, jv = j._slabs()
     tk, tv = t._slabs()
     for m, k in ((4, 5), (64, 0)):
@@ -172,7 +258,7 @@ def test_reference_state_carried_in_through_convert_serves_equal():
     t = convert.from_arrays(_reference_arrays(j), device="cpu")
     _assert_state_equal(j, t)
     jp, tp = _preds(6)
-    _assert_equal(j._query_bitmaps(jp), t._query_bitmaps(tp), "qbms")
+    _assert_equal(j._query_bitmaps(jp), t._query_bitmaps(tp)[0], "qbms")
     for m, k in ((2, 8), (j.gather_cap, 8), (8, 0)):
         _assert_result_equal(j.search_compact_batch(jp, max_selected=m, top_k=k),
                              t.search_compact_batch(tp, max_selected=m, top_k=k))

@@ -37,7 +37,6 @@ from repro_torch import convert
 from repro_torch.core import index as thix
 from repro_torch.core.partition import ShardedHippoIndex as TSharded
 from repro_torch.core.predicate import Predicate as TPred
-from repro_torch.core.predicate import intervals as tintervals
 from repro_torch.launch import serve as tlaunch
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch.mesh import (batch_axes, current_mesh,
@@ -501,8 +500,7 @@ def test_placed_sharded_searches_equal_reference(sharded_pair, n_devices,
     else:
         assert isinstance(k, PlacedTensor) and k.num_blocks == blocks
         assert st.summaries.num_blocks == blocks
-    qbms = t._query_bitmaps(tpreds)
-    los, his = tintervals(tpreds, CPU)
+    qbms, los, his = t._query_bitmaps(tpreds)
     jd, _ = _reference_results(j, jpreds, top_k=0)
     dense = thix.search_many_sharded(st.shards, qbms, k, v, los, his)
     plain = thix.search_many_sharded(t.state.shards, qbms, keys, valid, los,
