@@ -4,11 +4,11 @@ and a helper that cuts a cell to a size the CPU runs in seconds (the same
 code paths; the port's kernels take their plain versions on CPU tensors).
 
 No cell of ``BENCHMARK.json`` writes yet (PERF.md, Open questions), so the
-day-sorted layout with its refresh stream (appends of the newest day, a
-retention delete of the oldest) is kept proven here: the test checkout adds
-``daily.refresh`` (an open loop beside the refresh stream) and
-``daily.scan`` (a closed loop on the sorted column, half the queries
-recent) to a copy of the benchmark."""
+day-sorted layout with its refresh stream ``streams/daily_retention.py``
+(appends of the newest day, a retention delete of the oldest) is kept proven
+here: the test checkout adds ``daily.refresh`` (an open loop beside the
+refresh stream) and ``daily.scan`` (a closed loop on the sorted column, half
+the queries recent) to a copy of the benchmark."""
 import json
 import shutil
 import sys
@@ -43,6 +43,7 @@ def _test_checkout(root: Path) -> Path:
     base = bench["configs"][0]
     cfg = json.loads((pb_registry.ROOT / base["file"]).read_text())
     cfg.update(name="test_daily", layout="daily", spare_pages=4096,
+               refresh_stream="daily_retention",
                rows_per_day=cfg["rows"] // cfg["days"])
     (root / "portbench" / "configs" / "test_daily.json").write_text(
         json.dumps(cfg))
@@ -69,8 +70,11 @@ def test_root(tmp_path_factory):
 
 def tiny(cell, rows: int = 12000, rate: float = 300.0):
     """Cut ``cell`` to ``rows`` rows (days keep their number; a day holds
-    rows / days rows) and its open loop and refresh stream to ``rate``."""
-    cell.config.update(rows=rows, rows_per_day=max(rows // cell.config["days"], 1))
+    rows / days rows, and so does a day of the daily stream) and its open
+    loop and refresh stream to ``rate``."""
+    cell.config["rows"] = rows
+    if "rows_per_day" in cell.config:
+        cell.config["rows_per_day"] = max(rows // cell.config["days"], 1)
     if cell.traffic.get("writes"):
         cell.traffic["writes"]["rate_rows_per_s"] = rate
     if cell.traffic["reads"]["loop"] == "open":

@@ -1,5 +1,5 @@
-"""The deployment's data, made from the seed: the key column and the
-refresh stream.
+"""The deployment's data, made from the seed: the key column and the size
+of each order it was drawn from.
 
 The column is TPC-H ``lineitem.l_shipdate`` as whole days since 1992-01-01,
 drawn as dbgen draws it (TPC-H v3.0.1 clause 4.2.3), on the device in a few
@@ -11,23 +11,40 @@ Layout ``dbgen`` keeps dbgen's load order (by orderkey: the lineitems of an
 order sit together, the day is otherwise uncorrelated with the page);
 layout ``daily`` sorts the column by day (a table appended day by day).
 
-The refresh stream is one fixed sequence of operations. Row r of the appends
-carries day ``days + r // rows_per_day``; before every row with
-``r % rows_per_day == 0`` the oldest whole day is deleted, so the table holds
-a rolling window of ``days`` days. ``RefreshStream.op(k)`` is the k-th
-operation.
+The configuration's writes are a refresh stream of its own, under
+``portbench/streams/`` (``pb_registry.load_stream``), made from the
+configuration, the seed and the ``Data`` below.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 
-def make_column(config: dict, seed: int, device) -> np.ndarray:
-    """(rows,) float32 host copy of the generated key column."""
+@dataclass
+class Data:
+    """What ``make_column`` made, on the host.
+
+    ``keys``: (rows,) float32, the key column in load order.
+    ``order_sizes``: (orders,) uint8, the lineitems of every order drawn, in
+    orderkey order. The first orders cover the ``rows`` keys, the last of
+    them perhaps cut; more were drawn than the table holds. On layout
+    ``dbgen`` order i's rows follow order i - 1's."""
+    keys: np.ndarray
+    order_sizes: np.ndarray
+
+
+def make_column(config: dict, seed: int, device) -> Data:
+    """The generated key column and its orders' sizes, each off the device
+    in one copy."""
     rows = int(config["rows"])
     n_lo, n_hi = (int(x) for x in config["lineitems_per_order"])
     s_lo, s_hi = (int(x) for x in config["ship_offset_days"])
+    if not 0 < n_lo <= n_hi <= 255:
+        raise ValueError(f"lineitems per order {n_lo}..{n_hi} do not fit "
+                         f"the order sizes' uint8")
     # enough orders that their lineitems pass ``rows`` by many deviations
     orders = int(rows / ((n_lo + n_hi) / 2) * 1.05) + 64
     g = torch.Generator(device=device)
@@ -49,39 +66,6 @@ def make_column(config: dict, seed: int, device) -> np.ndarray:
         days = torch.sort(days).values
     elif config["layout"] != "dbgen":
         raise ValueError(f"unknown layout {config['layout']!r}")
-    return days.float().cpu().numpy()
+    return Data(keys=days.float().cpu().numpy(),
+                order_sizes=per_order.to(torch.uint8).cpu().numpy())
 
-
-class RefreshStream:
-    """The configuration's appends and retention deletes, in order.
-
-    Operation k is ``("d", day)`` or ``("w", day)``; a delete precedes the
-    first row of every day (``delete(day, day)`` of the oldest day).
-    """
-
-    def __init__(self, config: dict):
-        self.days = int(config["days"])
-        # only a configuration with a refresh stream states it
-        self.rows_per_day = int(config.get("rows_per_day", 0))
-
-    def op(self, k: int) -> tuple[str, int]:
-        per = self.rows_per_day + 1          # one delete, then a day of rows
-        day, j = divmod(k, per)
-        if j == 0:
-            return ("d", day)
-        return ("w", self.days + day)
-
-    def ops_for_rows(self, rows: int) -> int:
-        """Operations up to and including the ``rows``-th append."""
-        if rows <= 0:
-            return 0
-        day, j = divmod(rows - 1, self.rows_per_day)
-        return day * (self.rows_per_day + 1) + j + 2
-
-    def newest_day(self, n_ops: int) -> int:
-        """The newest day in the table after the first ``n_ops``
-        operations."""
-        rows = n_ops - ((n_ops - 1) // (self.rows_per_day + 1) + 1) \
-            if n_ops > 0 else 0
-        return self.days + (rows - 1) // self.rows_per_day if rows else \
-            self.days - 1

@@ -2,7 +2,8 @@
 reference, and the result line.
 
 The window drives the program's main path: ``repro_torch.runtime.engine.
-QueryEngine`` (``submit``, ``run_batch``, ``write``, ``delete``) over a
+QueryEngine`` (``submit``, ``run_batch``, and the configuration's refresh
+stream, ``portbench/streams/``, issuing its writes and deletes) over a
 ``repro_torch.core.partition.ShardedHippoIndex`` in the engine's default
 compact mode. One thread does everything, in this order at every turn of the
 loop: the refresh operations that are due, the queries that are due (open
@@ -32,7 +33,7 @@ import pb_bytes
 import pb_data
 import pb_reference
 import pb_traffic
-from pb_registry import Cell, load_reader
+from pb_registry import Cell, load_reader, load_stream
 from pb_trace import NULL_SPAN, Trace, Tracer
 
 WARMUP_BATCHES = 8       # read batches before any write: the slab widens
@@ -125,8 +126,7 @@ class _Recorder:
 class Driver:
     """The engine, the refresh stream's position and the log of answers."""
 
-    def __init__(self, eng, stream: pb_data.RefreshStream, queries,
-                 top_k: int, tracer: Tracer):
+    def __init__(self, eng, stream, queries, top_k: int, tracer: Tracer):
         from repro_torch.core.predicate import Predicate
         self.pred = Predicate.between
         self.eng = eng
@@ -163,13 +163,11 @@ class Driver:
     def apply_op(self) -> tuple[str, float, float]:
         """Acknowledge the next refresh operation; returns its kind, start
         and end."""
-        kind, day = self.stream.op(self.n_ops)
+        k = self.n_ops
+        span = "pb.write" if self.stream.op(k)[0] == "w" else "pb.delete"
         t0 = clock()
-        with self.tracer.span("pb.write" if kind == "w" else "pb.delete"):
-            if kind == "w":
-                self.eng.write(float(day))
-            else:
-                self.eng.delete(float(day), float(day))
+        with self.tracer.span(span):
+            kind = self.stream.issue(self.eng, k)
         t1 = clock()
         self.n_ops += 1
         return kind, t0, t1
@@ -332,18 +330,9 @@ def _open_schedule(drv: Driver, mix: dict, seconds: float, seed: int,
     if w:
         row_due = pb_traffic.arrivals(float(w["rate_rows_per_s"]), seconds,
                                       seed, pb_traffic.WRITE_GAPS)
+        op_due = drv.stream.due(row_due, drv.n_ops)
     else:
-        row_due = np.zeros((0,), np.float64)
-    op_due = []
-    k = drv.n_ops
-    for t in row_due:
-        kind, _ = drv.stream.op(k)
-        if kind == "d":             # the delete goes with the day's first row
-            op_due.append(t)
-            k += 1
-        op_due.append(t)
-        k += 1
-    op_due = np.asarray(op_due, np.float64)
+        op_due = np.zeros((0,), np.float64)
     r = mix["reads"]
     if r["loop"] == "closed":
         return op_due, None, None, None
@@ -400,8 +389,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         if on_gpu:
             torch.cuda.synchronize()
 
+    has_writes = bool(mix.get("writes"))
+    if has_writes and "refresh_stream" not in cfg:
+        raise ValueError(f"{cell.name}: its mix writes, and its configuration "
+                         f"names no refresh_stream")
     t = clock()
-    column = pb_data.make_column(cfg, seed, dev)
+    data = pb_data.make_column(cfg, seed, dev)
+    column = data.keys
     parts["data_s"] = clock() - t
     t = clock()
     table = PagedTable.from_values(column, page_card=int(cfg["page_card"]),
@@ -418,9 +412,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                       drain_units=int(cfg["drain_units"]))
     tracer = Tracer()
     recorder = _Recorder(hix, tracer) if trace else None
-    stream = pb_data.RefreshStream(cfg)
+    stream = load_stream(cfg, seed, data, cell.root)
     drv = Driver(eng, stream, pb_traffic.Queries(mix, seed), top_k, tracer)
-    has_writes = bool(mix.get("writes"))
     t = clock()
     try:
         _warm_up(drv, has_writes, int(cfg["batch"]))
@@ -477,9 +470,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     # -- the check, once the program's state is freed --------------------------
     t = clock()
-    ref = pb_reference.Reference(column, cfg, n_ops, dev, top_k=top_k)
+    ref = pb_reference.Reference(column, stream, n_ops, dev, top_k=top_k)
     if control == "bf16":
-        ctl = pb_reference.Reference(column, cfg, n_ops, dev,
+        ctl = pb_reference.Reference(column, stream, n_ops, dev,
                                      key_dtype=torch.bfloat16, top_k=top_k)
         answers = pb_reference.control_answers(ctl, answers)
     elif control is not None:

@@ -1,6 +1,8 @@
 """The plain reference: exact answers worked out from the benchmark's own
-copy of the generated column, with the refresh stream's operations applied
-in the order the harness acknowledged them. Imports nothing of the program.
+copy of the generated column, with the refresh stream's per-day changes
+(``changes(k)`` of ``portbench/streams/<name>.py``) applied in the order the
+harness acknowledged the operations. Imports nothing of the program, and
+never asks the stream to issue an operation.
 
 The keys are whole days stored as float32, and every predicate is a closed
 interval of whole days, so a count is a sum of per-day live counts and the
@@ -19,8 +21,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pb_data import RefreshStream
-
 _PAD = np.iinfo(np.int64).max
 
 
@@ -32,15 +32,15 @@ def _rounded(x: np.ndarray, dtype: torch.dtype) -> np.ndarray:
 class Reference:
     """Answers batches in the order they were served. A batch is
     ``(n_ops, lo, hi, top_k)``: the refresh operations acknowledged before
-    it and its queries' inclusive day intervals."""
+    it and its queries' inclusive day intervals. The days are
+    ``[0, stream.newest_day(max_ops)]``."""
 
-    def __init__(self, column: np.ndarray, config: dict, max_ops: int,
+    def __init__(self, column: np.ndarray, stream, max_ops: int,
                  device, key_dtype: torch.dtype = torch.float32,
                  top_k: int = 0):
-        self.stream = RefreshStream(config)
+        self.stream = stream
         days_col = np.asarray(column).astype(np.int64)
-        self.domain = max(self.stream.newest_day(max_ops) + 1,
-                          int(config["days"]))
+        self.domain = stream.newest_day(max_ops) + 1
         self.counts = np.bincount(days_col, minlength=self.domain)
         self.key_of_day = _rounded(np.arange(self.domain), key_dtype)
         self.key_dtype = key_dtype
@@ -71,11 +71,8 @@ class Reference:
         if n_ops > self.ops_done and self._first is not None:
             raise ValueError("row ids are checked without a refresh stream")
         for k in range(self.ops_done, n_ops):
-            kind, day = self.stream.op(k)
-            if kind == "d":
-                self.counts[day] = 0
-            else:
-                self.counts[day] += 1
+            for day, rows in self.stream.changes(k):
+                self.counts[day] += rows
         self.ops_done = n_ops
 
     @property

@@ -8,9 +8,29 @@ sits in a file of its own, found through ``BENCHMARK.json``:
   portbench/traffic/<traffic>.json    a traffic mix, read by ``pb_traffic``
   portbench/metrics/<metric>.py       one reader per metric:
                                       ``read(run) -> float | None``
+  portbench/streams/<stream>.py       a refresh stream, named by a
+                                      configuration's ``refresh_stream``
 
-So a cell, a configuration or a metric is added by adding files and
-``BENCHMARK.json`` entries; no file of the harness changes.
+So a cell, a configuration, its writes or a metric is added by adding files
+and ``BENCHMARK.json`` entries; no file of the harness changes.
+
+A stream module defines ``Stream(config, seed, data)`` (``data``: the
+``pb_data.Data`` made for the run), whose answers depend on ``k`` or
+``n_ops`` alone:
+
+  op(k)                 the k-th operation, a tuple whose first item is its
+                        kind, "w" (a write) or "d" (a delete)
+  issue(eng, k) -> kind issues operation k to the engine (the only place a
+                        stream touches the program, through the methods of
+                        the object it is handed; it imports nothing of it)
+  changes(k)            [(day, signed rows), ...]: how operation k moves the
+                        live rows of each day, for the reference
+  newest_day(n_ops)     the newest day after the first n_ops operations,
+                        where the queries are placed
+  ops_for_rows(r)       the operations up to and including the r-th row
+                        written, for the warm-up
+  due(row_due, k0)      the due times of the operations from k0 on, given
+                        the Poisson arrivals ``row_due`` of its rows
 """
 from __future__ import annotations
 
@@ -62,13 +82,37 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
                 root=root)
 
 
-def load_reader(metric: str, root: Path = ROOT):
-    """The ``read`` function of ``portbench/metrics/<metric>.py``."""
-    path = Path(root) / "portbench" / "metrics" / f"{metric}.py"
-    mod_name = "pb_metric_" + re.sub(r"\W", "_", metric)
+def _load(kind: str, name: str, root: Path):
+    path = Path(root) / "portbench" / f"{kind}s" / f"{name}.py"
+    mod_name = f"pb_{kind}_" + re.sub(r"\W", "_", name)
     spec = importlib.util.spec_from_file_location(mod_name, path)
     if spec is None or not path.is_file():
-        raise FileNotFoundError(f"no reader for metric {metric!r} at {path}")
+        raise FileNotFoundError(f"no {kind} {name!r} at {path}")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(metric: str, root: Path = ROOT):
+    """The ``read`` function of ``portbench/metrics/<metric>.py``."""
+    return _load("metric", metric, root).read
+
+
+class NoStream:
+    """A configuration without ``refresh_stream``: no operations, and the
+    loaded calendar's last day stays the newest."""
+
+    def __init__(self, config: dict):
+        self.days = int(config["days"])
+
+    def newest_day(self, n_ops: int) -> int:
+        return self.days - 1
+
+
+def load_stream(config: dict, seed: int, data, root: Path = ROOT):
+    """The configuration's refresh stream: ``Stream(config, seed, data)`` of
+    ``portbench/streams/<refresh_stream>.py``, or ``NoStream``."""
+    name = config.get("refresh_stream")
+    if name is None:
+        return NoStream(config)
+    return _load("stream", name, root).Stream(config, seed, data)

@@ -13,7 +13,7 @@ A mix file (``portbench/traffic/<name>.json``) holds only parameters:
                       nothing)
   reads.top_k         row ids returned per query (0: counts only)
   writes              null, or {"rate_rows_per_s": r}: the configuration's
-                      refresh stream (``pb_data.RefreshStream``) with Poisson
+                      refresh stream (``portbench/streams/``) with Poisson
                       row arrivals at r rows a second
 
 Every seed gets the same sizes and the same arrivals in another order: each

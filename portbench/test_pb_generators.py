@@ -1,12 +1,15 @@
 """The traffic generator and the data repeat exactly for a seed, give every
-seed the same sizes and arrivals in another order, and the refresh stream's
-positions agree with its operations."""
+seed the same sizes and arrivals in another order, and the daily refresh
+stream's (``streams/daily_retention.py``) positions and schedule agree with
+its operations."""
+import hashlib
+
 import numpy as np
 import pytest
 
 import pb_data
 import pb_traffic
-from pb_registry import find_cell
+from pb_registry import find_cell, load_stream
 
 DBGEN = {"days": 2557, "orderdate_days": 2406, "lineitems_per_order": [1, 7],
          "ship_offset_days": [1, 121]}
@@ -55,9 +58,9 @@ def test_arrivals_are_one_set_of_gaps_in_another_order():
 @pytest.mark.parametrize("layout", ["dbgen", "daily"])
 def test_column_repeats_for_a_seed(layout):
     cfg = dict(DBGEN, rows=50_000, layout=layout)
-    a = pb_data.make_column(cfg, 2**33 + 1, "cpu")
-    b = pb_data.make_column(cfg, 2**33 + 1, "cpu")
-    c = pb_data.make_column(cfg, 2**33 + 2, "cpu")
+    a = pb_data.make_column(cfg, 2**33 + 1, "cpu").keys
+    b = pb_data.make_column(cfg, 2**33 + 1, "cpu").keys
+    c = pb_data.make_column(cfg, 2**33 + 2, "cpu").keys
     assert a.dtype == np.float32 and a.shape == (50_000,)
     assert np.array_equal(a, b) and not np.array_equal(a, c)
     # o_orderdate in [0, 2405] plus 1..121 days, whole days
@@ -65,8 +68,15 @@ def test_column_repeats_for_a_seed(layout):
     assert np.all(np.diff(a) >= 0) == (layout == "daily")
 
 
+def _daily(days: int, rows_per_day: int, keys=()):
+    data = pb_data.Data(keys=np.asarray(keys, np.float32),
+                        order_sizes=np.zeros((0,), np.uint8))
+    return load_stream({"refresh_stream": "daily_retention", "days": days,
+                        "rows_per_day": rows_per_day}, 0, data)
+
+
 def test_refresh_stream_positions():
-    s = pb_data.RefreshStream({"days": 10, "rows_per_day": 3})
+    s = _daily(10, 3)
     ops = [s.op(k) for k in range(9)]
     assert ops == [("d", 0), ("w", 10), ("w", 10), ("w", 10),
                    ("d", 1), ("w", 11), ("w", 11), ("w", 11), ("d", 2)]
@@ -78,6 +88,56 @@ def test_refresh_stream_positions():
         n = s.ops_for_rows(rows)
         assert sum(1 for k, _ in ops[:n] if k == "w") == rows
         assert n == 0 or ops[n - 1][0] == "w"
+
+
+def test_refresh_stream_schedule():
+    """Each row comes due at its arrival, and a day's delete with the day's
+    first row; the per-day changes leave each deleted day empty."""
+    s = _daily(10, 3, keys=[0, 0, 1, 2, 2, 2, 11])
+    row_due = np.arange(1, 9, dtype=np.float64) * 0.5
+    for first in (0, 2, 4):
+        due = s.due(row_due, first)
+        kinds = [s.op(k)[0] for k in range(first, first + due.size)]
+        assert kinds.count("w") == row_due.size and kinds[-1] == "w"
+        assert kinds.count("d") == {0: 3, 2: 2, 4: 3}[first]
+        # a write at its row's arrival, a delete at the next row's
+        rows_before = np.cumsum([0] + [k == "w" for k in kinds])[:-1]
+        assert np.array_equal(due, row_due[rows_before])
+    assert s.due(row_due[:0], 0).size == 0
+    live = np.bincount(np.asarray([0, 0, 1, 2, 2, 2, 11]), minlength=22)
+    for k in range(4 * 12):
+        kind, day = s.op(k)
+        for d, n in s.changes(k):
+            live[d] += n
+        if kind == "d":
+            assert live[day] == 0
+    # days 0-11 deleted (day 11 loaded one row and was appended three),
+    # days 12-21 appended
+    assert live[:12].sum() == 0 and np.all(live[12:] == 3)
+
+
+@pytest.mark.parametrize("layout", ["dbgen", "daily"])
+def test_order_sizes(layout):
+    """They cover the rows, the keys are the parent commit's (pinned by
+    digest), and on the dbgen layout an order's rows ship within 121 days
+    of each other."""
+    cfg = dict(DBGEN, rows=50_000, layout=layout)
+    data = pb_data.make_column(cfg, 2**33 + 1, "cpu")
+    sizes = data.order_sizes
+    assert sizes.dtype == np.uint8 and sizes.min() >= 1 and sizes.max() <= 7
+    assert int(sizes.sum()) >= 50_000
+    assert hashlib.sha256(data.keys.tobytes()).hexdigest()[:16] == \
+        {"dbgen": "0d552c5fb31e77db", "daily": "398192118557d768"}[layout]
+    if layout == "dbgen":
+        ends = np.cumsum(sizes.astype(np.int64))
+        n = int(np.searchsorted(ends, 50_000)) + 1
+        order = np.repeat(np.arange(n), sizes[:n])[:50_000]
+        lo = np.full(n, np.inf)
+        hi = np.full(n, -np.inf)
+        np.minimum.at(lo, order, data.keys)
+        np.maximum.at(hi, order, data.keys)
+        span = hi - lo
+        assert span.max() <= 120 and (span > 0).mean() > 0.5
 
 
 def test_cells_use_their_mix_files(test_root):
@@ -93,7 +153,7 @@ def test_dbgen_lineitems_follow_their_order():
     other; across orders the days spread over the whole calendar."""
     cfg = dict(DBGEN, rows=7 * 28_571, layout="dbgen",
                lineitems_per_order=[7, 7])
-    a = pb_data.make_column(cfg, 3, "cpu").reshape(-1, 7)
+    a = pb_data.make_column(cfg, 3, "cpu").keys.reshape(-1, 7)
     span = a.max(axis=1) - a.min(axis=1)
     assert span.max() <= 120 and np.median(span) > 60
     starts = a.min(axis=1)

@@ -7,10 +7,18 @@ import torch
 
 import pb_data
 import pb_reference
+from pb_registry import load_stream
 
 CFG = {"rows": 12_000, "days": 2557, "rows_per_day": 5, "layout": "daily",
        "orderdate_days": 2406, "lineitems_per_order": [1, 7],
-       "ship_offset_days": [1, 121]}
+       "ship_offset_days": [1, 121], "refresh_stream": "daily_retention"}
+
+
+def _data(cfg, seed):
+    """The column and the configuration's stream, as the harness makes
+    them."""
+    data = pb_data.make_column(cfg, seed, "cpu")
+    return data.keys, load_stream(cfg, seed, data)
 
 
 def _engine(column, top_k=0):
@@ -34,9 +42,8 @@ def _serve(eng, lo, hi):
 @pytest.mark.parametrize("layout", ["daily", "dbgen"])
 def test_counts_follow_writes_and_deletes(layout):
     cfg = dict(CFG, layout=layout)
-    column = pb_data.make_column(cfg, 41, "cpu")
+    column, stream = _data(cfg, 41)
     eng = _engine(column)
-    stream = pb_data.RefreshStream(cfg)
     rng = np.random.default_rng(0)
     batches, n_ops = [], 0
     for step in range(6):
@@ -46,17 +53,13 @@ def test_counts_follow_writes_and_deletes(layout):
         batches.append((n_ops, lo, hi, 0, [t.count for t in tickets],
                         [None] * 64))
         for _ in range(7 * step):          # appends and retention deletes
-            kind, day = stream.op(n_ops)
-            if kind == "w":
-                eng.write(float(day))
-            else:
-                eng.delete(float(day), float(day))
+            stream.issue(eng, n_ops)
             n_ops += 1
-    ref = pb_reference.Reference(column, cfg, n_ops, "cpu")
+    ref = pb_reference.Reference(column, stream, n_ops, "cpu")
     assert pb_reference.judge(ref, batches) == {
         "wrong_counts": 0, "wrong_row_ids": 0, "missing_answers": 0}
     # the same answers judged after the stream has been applied differ
-    late = pb_reference.Reference(column, cfg, n_ops, "cpu")
+    late = pb_reference.Reference(column, stream, n_ops, "cpu")
     late.advance(n_ops)
     assert pb_reference.judge(late, [(n_ops,) + b[1:] for b in batches]) \
         ["wrong_counts"] > 0
@@ -64,7 +67,7 @@ def test_counts_follow_writes_and_deletes(layout):
 
 def test_row_ids_match_the_compact_engine():
     cfg = dict(CFG, layout="dbgen")
-    column = pb_data.make_column(cfg, 42, "cpu")
+    column, stream = _data(cfg, 42)
     eng = _engine(column, top_k=32)
     rng = np.random.default_rng(1)
     lo = rng.integers(0, 2555 - 365, 128)
@@ -72,7 +75,7 @@ def test_row_ids_match_the_compact_engine():
     tickets = _serve(eng, lo, hi)
     batch = (0, lo, hi, 32, [t.count for t in tickets],
              [t.row_ids for t in tickets])
-    ref = pb_reference.Reference(column, cfg, 0, "cpu", top_k=32)
+    ref = pb_reference.Reference(column, stream, 0, "cpu", top_k=32)
     assert pb_reference.judge(ref, [batch]) == {
         "wrong_counts": 0, "wrong_row_ids": 0, "missing_answers": 0}
     want = np.flatnonzero((column >= lo[0]) & (column <= hi[0]))[:32]
@@ -81,18 +84,18 @@ def test_row_ids_match_the_compact_engine():
 
 def test_the_control_fails():
     cfg = dict(CFG, layout="dbgen")
-    column = pb_data.make_column(cfg, 43, "cpu")
+    column, stream = _data(cfg, 43)
     rng = np.random.default_rng(2)
     lo = rng.integers(0, 2555 - 365, 256)
     hi = lo + rng.choice([0, 29, 89, 364], 256)
-    exact = pb_reference.Reference(column, cfg, 0, "cpu", top_k=32)
+    exact = pb_reference.Reference(column, stream, 0, "cpu", top_k=32)
     served = [(0, lo, hi, 32, [int(c) for c in exact.counts_for(lo, hi)],
                exact.row_ids_for(lo, hi, 32))]
     assert pb_reference.judge(exact, served)["wrong_counts"] == 0
-    ctl = pb_reference.Reference(column, cfg, 0, "cpu",
+    ctl = pb_reference.Reference(column, stream, 0, "cpu",
                                  key_dtype=torch.bfloat16, top_k=32)
     got = pb_reference.judge(
-        pb_reference.Reference(column, cfg, 0, "cpu", top_k=32),
+        pb_reference.Reference(column, stream, 0, "cpu", top_k=32),
         pb_reference.control_answers(ctl, served))
     assert got["wrong_counts"] > 0 and got["wrong_row_ids"] > 0
 

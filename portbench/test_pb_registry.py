@@ -1,11 +1,12 @@
-"""The harness finds cells, mixes and metric readers by name, and a cell,
-a configuration and a metric are added with new files and new
-BENCHMARK.json entries alone."""
+"""The harness finds cells, mixes, metric readers and refresh streams by
+name, and a cell, a configuration, its refresh stream and a metric are
+added with new files and new BENCHMARK.json entries alone."""
 import json
 import re
 import shutil
 import time
 
+import numpy as np
 import pytest
 
 import pb_harness
@@ -87,3 +88,152 @@ def test_a_cell_config_mix_and_metric_added_as_files(tmp_path, tiny):
     assert out["correct"]
     assert out["metrics"]["batches_run"]["value"] > 0
     assert out["metrics"]["batches_run"]["unit"] == "batches"
+
+
+# A refresh stream that a later configuration could bring as a file alone:
+# new orders drawn as dbgen draws them (RF1's inserts), so its rows land all
+# over the calendar, and every ``rows_between_deletes`` rows a delete by key
+# range of one day, the ship day of a loaded order's last lineitem (found
+# through the order sizes that ``make_column`` hands over).
+RF1 = '''
+import numpy as np
+
+
+class Stream:
+
+    def __init__(self, config, seed, data):
+        self.days = int(config["days"])
+        self.every = int(config["rows_between_deletes"])
+        self.orderdate_days = int(config["orderdate_days"])
+        self.per_order = [int(x) for x in config["lineitems_per_order"]]
+        self.offset = [int(x) for x in config["ship_offset_days"]]
+        self.rng = np.random.default_rng([int(seed), 7])
+        self.keys = np.asarray(data.keys).astype(np.int64)
+        ends = np.cumsum(data.order_sizes.astype(np.int64))
+        self.last_row = np.minimum(ends, self.keys.size) - 1
+        self.loaded_orders = int(np.searchsorted(ends, self.keys.size)) + 1
+        self.live = np.bincount(self.keys, minlength=self.days)
+        self.ops, self.moves, self.pending = [], [], []
+
+    def _extend(self, k):
+        while len(self.ops) <= k:
+            if len(self.ops) % (self.every + 1) == self.every:
+                j = self.rng.integers(self.loaded_orders)
+                day = int(self.keys[self.last_row[j]])
+                gone = int(self.live[day])
+                self.live[day] = 0
+                self.ops.append(("d", day))
+                self.moves.append([(day, -gone)])
+                continue
+            if not self.pending:
+                n = self.rng.integers(self.per_order[0],
+                                      self.per_order[1] + 1)
+                od = self.rng.integers(self.orderdate_days)
+                self.pending = (od + self.rng.integers(
+                    self.offset[0], self.offset[1] + 1, n)).tolist()
+            day = int(self.pending.pop())
+            self.live[day] += 1
+            self.ops.append(("w", day))
+            self.moves.append([(day, 1)])
+
+    def op(self, k):
+        self._extend(k)
+        return self.ops[k]
+
+    def issue(self, eng, k):
+        kind, day = self.op(k)
+        if kind == "w":
+            eng.write(float(day))
+        else:
+            eng.delete(float(day), float(day))
+        return kind
+
+    def changes(self, k):
+        self._extend(k)
+        return self.moves[k]
+
+    def newest_day(self, n_ops):
+        return self.days - 1
+
+    def ops_for_rows(self, rows):
+        return rows + (rows - 1) // self.every if rows > 0 else 0
+
+    def due(self, row_due, first_op):
+        out, k = [], first_op
+        for t in row_due:
+            if self.op(k)[0] == "d":
+                out.append(t)
+                k += 1
+            out.append(t)
+            k += 1
+        return np.asarray(out, np.float64)
+'''
+# the same stream with each delete's change one row short
+RF1_OFF = RF1.replace("self.moves.append([(day, -gone)])",
+                      "self.moves.append([(day, 1 - gone)])")
+
+
+@pytest.fixture(scope="module")
+def rf1_root(tmp_path_factory):
+    """The benchmark's checkout with ``streams/test_rf1.py`` and its broken
+    twin, each with a configuration, and a mix and a cell for each."""
+    root = tmp_path_factory.mktemp("rf1") / "checkout"
+    shutil.copytree(pb_registry.ROOT / "portbench", root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads(json.dumps(BENCH))
+    base = bench["configs"][0]
+    (root / "portbench" / "traffic" / "rf1.json").write_text(json.dumps(
+        {"reads": {"loop": "open", "rate_qps": 300, "widths": [1, 30, 90, 365],
+                   "recent_share": 0.0, "top_k": 0},
+         "writes": {"rate_rows_per_s": 300}}))
+    for name, src in (("test_rf1", RF1), ("test_rf1_off", RF1_OFF)):
+        (root / "portbench" / "streams" / f"{name}.py").write_text(src)
+        cfg = json.loads((pb_registry.ROOT / base["file"]).read_text())
+        cfg.update(name=name, refresh_stream=name, rows_between_deletes=40)
+        (root / "portbench" / "configs" / f"{name}.json").write_text(
+            json.dumps(cfg))
+        bench["configs"].append(dict(base, name=name,
+                                     file=f"portbench/configs/{name}.json"))
+        bench["workloads"].append({"name": name.replace("_", "."),
+                                   "config": name, "traffic": "rf1",
+                                   "chips": 1, "why": "a test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root
+
+
+def test_a_refresh_stream_added_as_a_file(run_tiny, rf1_root, monkeypatch):
+    harness = {p.name: p.read_bytes()
+               for p in (pb_registry.ROOT / "portbench").glob("*.py")}
+    assert harness == {p.name: p.read_bytes()
+                       for p in (rf1_root / "portbench").glob("*.py")}
+    seen = []
+    orig = pb_harness.Driver.apply_op
+
+    def apply_op(self):
+        kind, a, b = orig(self)
+        seen.append(self.stream.op(self.n_ops - 1))
+        return kind, a, b
+    monkeypatch.setattr(pb_harness.Driver, "apply_op", apply_op)
+    out = run_tiny("test.rf1", root=rf1_root)
+    assert out["correct"], out["checks"]
+    assert all(c["value"] == 0 for c in out["checks"].values())
+    deletes = [day for kind, day in seen if kind == "d"]
+    writes = np.asarray([day for kind, day in seen if kind == "w"])
+    assert len(deletes) >= 10 and writes.size >= 400
+    # the rows land over the whole calendar, not on a newest day
+    assert writes.min() < 300 and writes.max() > 2200
+
+
+def test_a_stream_with_its_changes_off_by_one_is_not_correct(run_tiny,
+                                                             rf1_root):
+    out = run_tiny("test.rf1.off", root=rf1_root)
+    assert not out["correct"]
+    assert out["checks"]["wrong_counts"]["value"] > 0
+
+
+def test_a_missing_stream_is_named_by_its_path(tmp_path):
+    path = tmp_path / "portbench" / "streams" / "no_such.py"
+    with pytest.raises(FileNotFoundError, match=re.escape(str(path))):
+        pb_registry.load_stream({"refresh_stream": "no_such", "days": 10},
+                                1, None, tmp_path)
+    assert pb_registry.load_stream({"days": 10}, 1, None).newest_day(5) == 9
