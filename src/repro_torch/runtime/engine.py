@@ -32,7 +32,9 @@ the reference's for the same stream:
              dispatched shards.
 
 Writes (``runtime.writer.MaintenanceWriter``): ``write()``/``delete()``
-stage maintenance instead of running Algorithm 3 on the query path; staged
+(by key range) and ``delete_rows()`` (by row id, the port's own: TPC-H's
+RF2 deletes named orders, whose lineitems are no key range) stage
+maintenance instead of running Algorithm 3 on the query path; staged
 rows are overlaid into counts so results never go stale, and the engine
 drains shard queues under one of the reference's interleave policies:
 
@@ -384,16 +386,17 @@ class QueryEngine:
         """Insert one tuple. Under sync, Algorithm 3 on the spot; otherwise
         the row is staged in its shard's queue and drained by the policy.
         Counts include the row either way."""
-        self.stats.writes += 1
-        if self.writer is None:
-            self.index.insert(float(value))
-            return
-        self.writer.write(float(value))
-        self._maybe_schedule_resummarize()
-        if (self.drain_policy == "on_depth"
-                and self._maintenance_backlog() >= self.drain_depth):
-            self._drain(None)
-        self._sync_writer_stats()
+        with span("hippo.engine.write"):
+            self.stats.writes += 1
+            if self.writer is None:
+                self.index.insert(float(value))
+                return
+            self.writer.write(float(value))
+            self._maybe_schedule_resummarize()
+            if (self.drain_policy == "on_depth"
+                    and self._maintenance_backlog() >= self.drain_depth):
+                self._drain(None)
+            self._sync_writer_stats()
 
     def delete(self, lo: float, hi: float) -> int:
         """Delete tuples with key in [lo, hi]; the validity update is
@@ -415,6 +418,42 @@ class QueryEngine:
             self._drain(None)
         self._sync_writer_stats()
         return n
+
+    def delete_rows(self, row_ids) -> int:
+        """Delete the tuples at global row ids (``page * page_card +
+        slot``, as ``top_k`` returns them); the validity update is immediate,
+        as ``delete``'s, and the host work grows with the ids, not with the
+        table. Under sync the index vacuums at once (skipped if nothing was
+        deleted); otherwise the ids' shards queue vacuum units
+        (``MaintenanceWriter.delete_rows``, which also refuses while a
+        journal is attached). Ids past the table's tail are refused
+        (IndexError), ids already deleted count 0. Returns tuples deleted."""
+        with span("hippo.engine.delete_rows"):
+            if self.writer is None:
+                n = self._delete_rows_sync(row_ids)
+                self.stats.deletes += n
+                return n
+            n = self.writer.delete_rows(row_ids)
+            self.stats.deletes += n
+            if (self.drain_policy == "on_depth"
+                    and self._maintenance_backlog() >= self.drain_depth):
+                self._drain(None)
+            self._sync_writer_stats()
+            return n
+
+    def _delete_rows_sync(self, row_ids) -> int:
+        """The sync path: the table, a fresh slab view of a sharded index
+        patched in place (so the vacuum reads it without a re-upload), then
+        the vacuum."""
+        table = self.index.table
+        spec = getattr(self.index, "spec", None)
+        was_fresh = table.slab_view_fresh
+        ids = table.delete_rows(row_ids)
+        if ids.size:
+            if spec is not None and was_fresh:
+                table.patch_rows(ids, spec.num_shards, spec.pages_per_shard)
+            self.index.vacuum()
+        return int(ids.size)
 
     def flush(self) -> int:
         """Drain every pending remap, shard queue and vacuum now. Returns

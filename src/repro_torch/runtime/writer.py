@@ -13,7 +13,10 @@ rebuilt while every other shard keeps serving. Lifecycle, per shard:
            the staged rows matching each predicate to the index's counts.
            Staged rows occupy no page until their drain, so they appear in
            counts only, never in row ids or page masks. ``delete(lo, hi)``
-           marks table tuples invalid at once and kills staged rows in range.
+           marks table tuples invalid at once and kills staged rows in range;
+           ``delete_rows(ids)`` marks exactly the table tuples at those row
+           ids invalid (a staged row has no id until its drain) and clears
+           their bits in the cached slab view in place.
   drain    between engine batches the writer takes one shard's whole queue,
            appends it to the table (``PagedTable.append``: the pages and fills
            of the reference's per-value inserts) and applies Algorithm 3 to a
@@ -44,7 +47,9 @@ entry.
 Durability: with a ``checkpointing.wal.Journal`` attached (``journal``),
 every staged insert, every delete and every scheduled re-summarization
 appends its record before the writer changes any state (append before
-admission), so an acknowledged operation survives a crash at any instant;
+admission), so an acknowledged operation survives a crash at any instant
+(the journal has no record for a row delete: ``delete_rows`` is refused
+while one is attached);
 ``checkpointing.snapshot.recover_index`` replays the journal through a
 fresh writer. ``dirty_checkpoint_shards`` is the delta capture set of the
 durable commits.
@@ -65,6 +70,7 @@ from repro_torch.core import index as hix
 from repro_torch.core import learned as ln
 from repro_torch.core.partition import SUMMARY_POLICIES
 from repro_torch.runtime.faultinject import crashpoint
+from repro_torch.spans import span
 
 _STAGE_BUCKET_MIN = 8   # smallest device overlay width
 
@@ -123,6 +129,9 @@ class WriterStats:
     learned_fallbacks: int = 0  # learned schedules that fell back to equal-mass
     last_drain_us: float = 0.0
     total_drain_us: float = 0.0
+    # the port's own, after the reference's fields
+    rows_deleted: int = 0     # table tuples deleted by row id (delete_rows)
+    patch_bytes: int = 0      # host-to-device bytes of every slab patch
 
 
 class MaintenanceWriter:
@@ -230,7 +239,7 @@ class MaintenanceWriter:
             self.journal.append_delete(float(lo), float(hi))
         table = self.index.table
         spec = self.index.spec
-        was_fresh = table._dev_shard is not None and not table._dev_shard_stale
+        was_fresh = table.slab_view_fresh
         n = table.delete_where(lo, hi)
         if n:
             self._dirty_since_checkpoint.update(
@@ -238,8 +247,10 @@ class MaintenanceWriter:
         if n and was_fresh:
             # every mutated page carries a dirty note until its vacuum, so
             # the dirty owners are exactly the slabs to patch
-            table.refresh_shard_slabs(self.index.dirty_shards(),
-                                      spec.num_shards, spec.pages_per_shard)
+            with span("hippo.writer.patch"):
+                self._count_patch(table.refresh_shard_slabs(
+                    self.index.dirty_shards(), spec.num_shards,
+                    spec.pages_per_shard))
         killed = 0
         for q in self._queues.values():
             killed += q.kill_range(lo, hi)
@@ -248,6 +259,45 @@ class MaintenanceWriter:
             self._dev_cache = None
             self.stats.killed += killed
         return n + killed
+
+    def delete_rows(self, row_ids) -> int:
+        """Table tuples at global row ids (``page * page_card + slot``) go
+        invalid now, exactly those; their pages take dirty notes, so their
+        shards queue vacuum units as ``delete``'s do. The host work grows
+        with the ids, not with the table: the shards come from the ids' own
+        pages, and a fresh slab view has just those tuples' bits cleared in
+        place (``PagedTable.patch_rows``). Refused before any change: an id
+        past the table's tail (a staged row has no id until its drain;
+        IndexError), and any call while a journal is attached (it has no
+        record for a row delete). Ids already deleted count 0; returns the
+        tuples deleted."""
+        self.index._check_swap_guard()
+        self._check_attached()
+        if self.journal is not None:
+            raise RuntimeError(
+                "delete_rows refused: the write-ahead journal has no record "
+                "for a row delete, so it could not survive a crash; delete "
+                "by key range, or serve row deletes without storage_dir")
+        table = self.index.table
+        spec = self.index.spec
+        was_fresh = table.slab_view_fresh
+        ids = table.delete_rows(row_ids)
+        if ids.size:
+            pages = ids // table.page_card
+            self._dirty_since_checkpoint.update(
+                int(s) for s in np.unique(pages // spec.pages_per_shard))
+            if was_fresh:
+                with span("hippo.writer.patch"):
+                    self._count_patch(table.patch_rows(
+                        ids, spec.num_shards, spec.pages_per_shard))
+        self.stats.rows_deleted += int(ids.size)
+        return int(ids.size)
+
+    def _count_patch(self, nbytes: int | None) -> None:
+        """Count a slab patch's host-to-device bytes (None: no view was
+        patched)."""
+        if nbytes:
+            self.stats.patch_bytes += nbytes
 
     # -- introspection -------------------------------------------------------
 
@@ -414,12 +464,14 @@ class MaintenanceWriter:
             for s in self.pending_shards():
                 if max_units is not None and units >= max_units:
                     break
-                rows += self._drain_shard(s)
+                with span("hippo.writer.insert"):
+                    rows += self._drain_shard(s)
                 units += 1
             for s in self.pending_vacuum_shards():
                 if max_units is not None and units >= max_units:
                     break
-                self._drain_vacuum(s)
+                with span("hippo.writer.vacuum"):
+                    self._drain_vacuum(s)
                 units += 1
         finally:
             if units:
@@ -457,7 +509,7 @@ class MaintenanceWriter:
         values = np.asarray(q.values, np.float32)
         live = np.asarray(q.live, bool)
         snap_pages, snap_fill = table.num_pages, table.fill
-        was_fresh = table._dev_shard is not None and not table._dev_shard_stale
+        was_fresh = table.slab_view_fresh
         idx.swap_in_flight = s
         try:
             # the shard's tensors as views: every update below makes copies
@@ -508,8 +560,9 @@ class MaintenanceWriter:
         self._dev_cache = None
         self._dirty_since_checkpoint.add(s)
         if was_fresh:
-            table.refresh_shard_slabs([s], spec.num_shards,
-                                      spec.pages_per_shard)
+            with span("hippo.writer.patch"):
+                self._count_patch(table.refresh_shard_slabs(
+                    [s], spec.num_shards, spec.pages_per_shard))
         applied = int(live.sum())
         idx.counters.inserts += applied
         self.stats.drained_rows += applied

@@ -1,5 +1,5 @@
-"""Named spans at the stage boundaries of the read path, recorded into a
-running ``torch.profiler`` trace.
+"""Named spans at the stage boundaries of the read path and the write path,
+recorded into a running ``torch.profiler`` trace.
 
 ``span(name)`` returns a profiler range while a torch profiler records
 (``torch.autograd._profiler_enabled()``) and one shared no-op context

@@ -8,12 +8,14 @@ the page space into S contiguous slabs of ``pages_per_shard`` pages; slab
 pages past ``num_pages`` are zero-key, invalid padding.
 
 Mutations are host-side numpy, as in the reference: appends (``insert``,
-``insert_batch``, the vectorized ``append``), ``delete_where``, which marks
-tuples invalid and sets the per-page ``dirty`` note that VACUUM consumes
-(§5.2), ``clear_dirty`` and the rollback ``truncate_to``. Every mutation
-drops the unsharded view and marks the slab view stale, so the next query
-uploads the table again, unless the writer patches the slabs its mutation
-touched back into the cached view (``refresh_shard_slabs``).
+``insert_batch``, the vectorized ``append``), ``delete_where`` (by key
+range) and ``delete_rows`` (by row id, the port's own), which mark tuples
+invalid and set the per-page ``dirty`` note that VACUUM consumes (§5.2),
+``clear_dirty`` and the rollback ``truncate_to``. Every mutation drops the
+unsharded view and marks the slab view stale, so the next query uploads the
+table again, unless the writer patches the slabs its mutation touched back
+into the cached view (``refresh_shard_slabs``), or the bits a row delete
+cleared (``patch_rows``).
 
 Device views follow the port's device rule: ``device=None`` is the card.
 """
@@ -150,6 +152,11 @@ class PagedTable:
             self._dev_shard_stale = False
         return self._dev_shard
 
+    @property
+    def slab_view_fresh(self) -> bool:
+        """A slab view is cached and every mutation since is patched in."""
+        return self._dev_shard is not None and not self._dev_shard_stale
+
     def _host_slab(self, s: int, pages_per_shard: int
                    ) -> tuple[np.ndarray, np.ndarray]:
         """(keys, valid) host views of the table's pages in shard s's slab
@@ -159,24 +166,26 @@ class PagedTable:
         return self.keys[lo:hi], self.valid[lo:hi]
 
     def refresh_shard_slabs(self, shard_ids, num_shards: int,
-                            pages_per_shard: int) -> bool:
+                            pages_per_shard: int) -> int | None:
         """Patch a stale slab view in place after shard-local mutations.
 
         Contract (as the reference's): every mutation since the view went
         stale is confined to the slabs in ``shard_ids``. Each touched slab's
         pages are copied host-to-device once into the cached (S, PPS, C)
         views (its padding pages zeroed) and the view's key takes the
-        table's page count. Returns True if the view was patched; False if
-        there is no compatible view, or the table outgrew the layout (the
-        next ``device_*_sharded`` call then rebuilds it whole).
+        table's page count. Returns the host-to-device bytes copied if the
+        view was patched; None if there is no compatible view, or the table
+        outgrew the layout (the next ``device_*_sharded`` call then rebuilds
+        it whole).
         """
         if self._dev_shard is None:
-            return False
+            return None
         (cs, cpps, _, dev), keys_dev, valid_dev = self._dev_shard
         if (cs, cpps) != (num_shards, pages_per_shard):
-            return False
+            return None
         if num_shards * pages_per_shard < self.num_pages:
-            return False                     # table outgrew the layout
+            return None                      # table outgrew the layout
+        nbytes = 0
         for s in sorted(set(int(s) for s in shard_ids)):
             hk, hv = self._host_slab(s, pages_per_shard)
             n = hk.shape[0]
@@ -184,10 +193,38 @@ class PagedTable:
             valid_dev[s, :n].copy_(torch.from_numpy(hv))
             keys_dev[s, n:].zero_()
             valid_dev[s, n:].zero_()
+            nbytes += hk.nbytes + hv.nbytes
         key = (num_shards, pages_per_shard, self.num_pages, dev)
         self._dev_shard = (key, keys_dev, valid_dev)
         self._dev_shard_stale = False
-        return True
+        return nbytes
+
+    def patch_rows(self, row_ids: np.ndarray, num_shards: int,
+                   pages_per_shard: int) -> int | None:
+        """Clear the valid bits of rows ``delete_rows`` just deleted in the
+        cached slab view, in place.
+
+        Contract: the view was fresh before that ``delete_rows`` and nothing
+        else mutated the table since. A global row id is its tuple's flat
+        index in the (S, PPS, C) view, so the patch is one page-locked
+        upload of the ids and one indexed store; the view turns fresh.
+        Returns the host-to-device bytes copied; None if there is no
+        compatible view (the next ``device_*_sharded`` call then rebuilds
+        it whole).
+        """
+        if self._dev_shard is None:
+            return None
+        (cs, cpps, n, dev), _, valid_dev = self._dev_shard
+        if (cs, cpps, n) != (num_shards, pages_per_shard, self.num_pages):
+            return None
+        ids = np.asarray(row_ids, np.int64).ravel()
+        host = torch.empty((ids.size,), dtype=torch.int64,
+                           pin_memory=dev.type == "cuda" and ids.size > 0)
+        host.numpy()[:] = ids
+        valid_dev.view(-1).index_fill_(0, host.to(dev, non_blocking=True),
+                                       False)
+        self._dev_shard_stale = False
+        return ids.nbytes
 
     def device_keys_sharded(self, num_shards: int, pages_per_shard: int,
                             device=None) -> torch.Tensor:
@@ -271,6 +308,32 @@ class PagedTable:
         self.dirty[: self.num_pages] |= npages
         self._mutated()
         return int(hit.sum())
+
+    def delete_rows(self, row_ids) -> np.ndarray:
+        """Mark the live tuples at global row ids (``page * page_card +
+        slot``) deleted and set their pages' dirty notes; the work grows
+        with the ids, not with the table. Raises IndexError, before any
+        change, for an id below 0 or at or past the append tail. Returns
+        the ids of the tuples it deleted, ascending and unique (ids already
+        deleted, or given twice, are left out)."""
+        ids = np.unique(np.asarray(row_ids, np.int64).ravel())
+        tail = (self.num_pages - 1) * self.page_card + self.fill \
+            if self.num_pages else 0
+        if ids.size and (ids[0] < 0 or ids[-1] >= tail):
+            bad = int(ids[0] if ids[0] < 0 else ids[-1])
+            raise IndexError(f"row id {bad} outside the table's {tail} "
+                             f"appended tuples")
+        pages, slots = np.divmod(ids, self.page_card)
+        hit = self.valid[pages, slots]
+        if not hit.any():
+            return ids[:0]                # nothing changed: keep device views
+        ids, pages, slots = ids[hit], pages[hit], slots[hit]
+        self.valid[pages, slots] = False
+        touched = np.unique(pages)
+        self.num_dirty += int((~self.dirty[touched]).sum())
+        self.dirty[touched] = True
+        self._mutated()
+        return ids
 
     def clear_dirty(self, page_ids: np.ndarray) -> None:
         # dedup: repeated ids must not decrement num_dirty twice

@@ -1,4 +1,4 @@
-"""The read path's spans (``repro_torch.spans``) on a small sharded index on
+"""The program's spans (``repro_torch.spans``) on a small sharded index on
 the CPU.
 
 - Under ``torch.profiler``, one compact ``run_batch`` records every span of
@@ -8,6 +8,12 @@ the CPU.
   context, and a profiler started afterwards sees no ``hippo.`` event.
 - Tickets, row ids and ``EngineStats`` are the same with and without the
   profiler.
+- The write side: ``hippo.engine.write`` and ``hippo.engine.delete_rows``
+  around the engine's calls, outside every batch; ``hippo.writer.insert``
+  and ``hippo.writer.vacuum`` inside a batch's drain, and
+  ``hippo.writer.patch`` inside the insert drain and the row delete.
+  ``WriterStats.rows_deleted`` and ``patch_bytes`` count a whole-slab patch
+  at its slab's bytes and a row delete at its ids' alone.
 """
 import dataclasses
 
@@ -76,7 +82,10 @@ def test_one_batch_records_its_stages_inside_the_batch_span(top_k, writer):
     if writer == "overlay":
         want.add("hippo.index.overlay")
     if writer == "drain":
-        want.add("hippo.engine.drain")
+        # the drained insert queue and its slab patch (the index's build
+        # left the view fresh)
+        want |= {"hippo.engine.drain", "hippo.writer.insert",
+                 "hippo.writer.patch"}
     assert {e.name for e in events} == want
     batch = [e for e in events if e.name == "hippo.engine.batch"]
     assert len(batch) == 1
@@ -118,3 +127,95 @@ def test_without_a_profiler_no_span_is_built(monkeypatch):
                 if e.name.startswith(spans.PREFIX)]
     with spans.NO_SPAN as s:
         assert s is spans.NO_SPAN
+
+
+# -- the write side ------------------------------------------------------------
+
+WRITE_PARENTS = {"hippo.engine.drain": {"hippo.engine.batch"},
+                 "hippo.writer.insert": {"hippo.engine.drain"},
+                 "hippo.writer.vacuum": {"hippo.engine.drain"},
+                 "hippo.writer.patch": {"hippo.writer.insert",
+                                        "hippo.engine.delete_rows"}}
+
+
+def _writer_engine() -> QueryEngine:
+    """A fresh 3-shard index (180 loaded pages: 97 in shard 0's slab, 83 in
+    shard 1's) behind a between-batches writer draining two units a batch,
+    its slab view fresh."""
+    idx = ShardedHippoIndex.create(PagedTable.from_values(VALUES, 50),
+                                   num_shards=3, resolution=400, device="cpu")
+    eng = QueryEngine(idx, batch=16, drain_units=2)
+    eng.submit(Predicate.between(0.0, 2600.0))
+    eng.run_batch()
+    assert not idx.table._dev_shard_stale
+    return eng
+
+
+def _inside(child, parent) -> bool:
+    return (child.thread == parent.thread
+            and parent.time_range.start <= child.time_range.start
+            and child.time_range.end <= parent.time_range.end)
+
+
+def test_the_write_side_spans_nest_as_stated():
+    eng = _writer_engine()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for v in NEW_ROWS[:3]:
+            eng.write(v)
+        assert eng.delete_rows([5, 6, 7, 4000]) == 4
+        eng.submit(Predicate.between(0.0, 2600.0))
+        eng.run_batch()        # the insert queue, then shard 0's vacuum
+    assert (eng.writer.stats.drains, eng.writer.stats.vacuums) == (2, 1)
+    events = [e for e in prof.events() if e.name.startswith(spans.PREFIX)]
+    names = [e.name for e in events]
+    for name, n in (("hippo.engine.write", 3), ("hippo.engine.delete_rows", 1),
+                    ("hippo.engine.drain", 1), ("hippo.writer.insert", 1),
+                    ("hippo.writer.vacuum", 1), ("hippo.writer.patch", 2)):
+        assert names.count(name) == n, name
+    for e in events:
+        assert not e.is_user_annotation, e.name
+        parents = WRITE_PARENTS.get(e.name)
+        if parents:
+            assert any(p.name in parents and _inside(e, p) for p in events), \
+                e.name
+    batch = [e for e in events if e.name == "hippo.engine.batch"][0]
+    assert not any(_inside(e, batch) for e in events
+                   if e.name in ("hippo.engine.write",
+                                 "hippo.engine.delete_rows"))
+    # each patch inside the delete, or inside the insert drain
+    patches = [e for e in events if e.name == "hippo.writer.patch"]
+    owners = sorted(p.name for e in patches for p in events
+                    if p.name in WRITE_PARENTS["hippo.writer.patch"]
+                    and _inside(e, p))
+    assert owners == ["hippo.engine.delete_rows", "hippo.writer.insert"]
+
+
+def test_writer_counts_rows_deleted_and_patch_bytes():
+    eng = _writer_engine()
+    st = eng.writer.stats
+    table = eng.index.table
+    assert (st.rows_deleted, st.patch_bytes) == (0, 0)
+    for v in NEW_ROWS:
+        eng.write(v)
+    eng.flush()
+    # the drain patches shard 1's whole slab: 83 loaded pages and the one
+    # the 40 rows opened, 50 keys (4 B) and valid bytes (1 B) a page
+    assert table.num_pages == 181
+    assert st.patch_bytes == 84 * 50 * 5 == 21_000
+    assert eng.delete_rows([0, 1, 2, 2, 9039]) == 4
+    assert (st.rows_deleted, st.patch_bytes) == (4, 21_000 + 4 * 8)
+    assert eng.delete_rows([0, 1]) == 0            # nothing left to patch
+    assert (st.rows_deleted, st.patch_bytes) == (4, 21_032)
+    # a range delete patches each dirty shard's whole slab; shard 0 has 97
+    # pages and every page holds one of the 2,555 days' rows in range
+    eng.flush()
+    assert eng.delete(0.0, 2600.0) > 0
+    assert st.patch_bytes == 21_032 + (97 + 84) * 250
+    assert st.rows_deleted == 4
+    # with no view to patch a row delete counts its rows and no bytes
+    eng.flush()
+    table._dev_shard = None
+    eng.write(7.0)
+    eng.flush()
+    assert eng.delete_rows([9040]) == 1
+    assert (st.rows_deleted, st.patch_bytes) == (5, 21_032 + 181 * 250)

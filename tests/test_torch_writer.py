@@ -5,7 +5,7 @@ One seeded stream of writes (in range and drifting past it), deletes,
 batches and flushes goes through the JAX package (on the CPU) and the port
 (``device="cpu"``) under each async drain policy. After every operation the
 tickets (counts and row ids), ``EngineStats`` and ``WriterStats`` (wall
-times aside), every state field, the bounds epochs, the table and the
+times and the port's own counters aside), every state field, the bounds epochs, the table and the
 writer's queues must be equal. Then the refusals, each with the same
 message and the same rollback, the slab view patched in place, and a crash
 injected before a drain's swap.
@@ -33,6 +33,8 @@ from repro_torch.runtime.writer import WriterStats
 from repro_torch.storage.table import PagedTable as TTable
 
 TIMES = {"drain_us", "last_drain_us", "total_drain_us"}   # wall clock
+# the port's own WriterStats counters, after the reference's fields
+PORT_ONLY = ("rows_deleted", "patch_bytes")
 
 
 def _host(x) -> np.ndarray:
@@ -62,7 +64,7 @@ def _assert_index_equal(j, t):
 
 def _stats(stats) -> dict:
     return {k: v for k, v in dataclasses.asdict(stats).items()
-            if k not in TIMES}
+            if k not in TIMES and k not in PORT_ONLY}
 
 
 def _assert_writer_equal(jw, tw):
@@ -461,6 +463,8 @@ def test_crash_before_swap_leaves_rows_staged_and_counted():
 
 
 def test_writer_stats_fields_equal_reference():
+    # the reference's fields, in its order, then the port's own counters
+    # (row deletes and slab-patch bytes, which the reference lacks)
     from repro.runtime.writer import WriterStats as JStats
     assert list(WriterStats.__dataclass_fields__) == \
-        list(JStats.__dataclass_fields__)
+        list(JStats.__dataclass_fields__) + list(PORT_ONLY)
