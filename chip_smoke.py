@@ -1129,7 +1129,7 @@ def writer_phase(torch, args, K, intervals, Predicate, QueryEngine,
                          writer=writer)
     drains = {"resummarize": [], "insert": [], "vacuum": []}
     patches = []
-    drain, refresh = writer.drain, table.refresh_shard_slabs
+    drain = writer.drain
 
     def timed_drain(max_units=None):
         before = dataclasses.replace(writer.stats)
@@ -1145,16 +1145,22 @@ def writer_phase(torch, args, K, intervals, Predicate, QueryEngine,
             drains[kind].append(dt)
         return rows
 
-    def timed_refresh(*a):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ok = refresh(*a)
-        torch.cuda.synchronize()
-        patches.append((time.perf_counter() - t, len(set(a[0])), ok))
-        return ok
+    def timed_patch(patch, extent):
+        def call(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok = patch(*a)
+            torch.cuda.synchronize()
+            patches.append((time.perf_counter() - t, extent(a), ok))
+            return ok
+        return call
 
     writer.drain = timed_drain
-    table.refresh_shard_slabs = timed_refresh
+    # an insert drain patches the pages it appended, a delete whole slabs
+    table.patch_pages = timed_patch(
+        table.patch_pages, lambda a: f"{table.num_pages - a[0]} pages")
+    table.refresh_shard_slabs = timed_patch(
+        table.refresh_shard_slabs, lambda a: f"{len(set(a[0]))} slabs")
     served = {"with_drain": [], "no_drain": []}
 
     def round_(what: str, pending: np.ndarray) -> None:
@@ -1224,7 +1230,7 @@ def writer_phase(torch, args, K, intervals, Predicate, QueryEngine,
     if writer.pending_units or table.num_dirty:
         fail(f"{writer.pending_units} units and {table.num_dirty} dirty "
              f"pages left after the vacuum batches")
-    del writer.drain, table.refresh_shard_slabs
+    del writer.drain, table.patch_pages, table.refresh_shard_slabs
     launches = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     st = eng.stats
@@ -1249,7 +1255,7 @@ def writer_phase(torch, args, K, intervals, Predicate, QueryEngine,
         "staged_write_us_at_trigger": 1e6 * lat[DRIFT_MIN_OBSERVED - 1],
         "drain_ms": {k: ms(v) for k, v in drains.items()},
         "slab_patch_ms": [1e3 * p[0] for p in patches],
-        "slab_patch_shards": [p[1] for p in patches],
+        "slab_patch_extent": [p[1] for p in patches],
         "slab_patched": all(p[2] for p in patches),
         "batch_with_drain_ms": ms(with_drain),
         "batch_with_drain_ms_median_by_kind": {

@@ -27,8 +27,10 @@ rebuilt while every other shard keeps serving. Lifecycle, per shard:
            ``vacuum_shard`` the same way. Queues drain in ascending shard
            order, so staged page ids land where stage-time routing put them.
   swap     one assignment publishes the rebuilt shard and its summary, and
-           the table patches that shard's slab into the cached device view
-           (``refresh_shard_slabs``) if the view was fresh before. While the
+           the table copies the pages the drain appended, from the old tail
+           page on, into the cached device view (``patch_pages``) if the
+           view was fresh before; a range delete's dirty slabs are patched
+           whole (``refresh_shard_slabs``). While the
            swap is in flight the index refuses queries and maintenance
            (``swap_in_flight``).
 
@@ -500,7 +502,8 @@ class MaintenanceWriter:
 
     def _drain_shard(self, s: int) -> int:
         """Drain shard s's queue: append it to the table, apply Algorithm 3
-        to a copy of the shard's state, swap it in."""
+        to a copy of the shard's state, swap it in, and copy the pages it
+        appended to into a slab view that was fresh before."""
         idx = self.index
         table = idx.table
         spec = idx.spec
@@ -560,9 +563,11 @@ class MaintenanceWriter:
         self._dev_cache = None
         self._dirty_since_checkpoint.add(s)
         if was_fresh:
+            # appends write only forward of the old tail: patch from the
+            # first page this drain appended to
             with span("hippo.writer.patch"):
-                self._count_patch(table.refresh_shard_slabs(
-                    [s], spec.num_shards, spec.pages_per_shard))
+                self._count_patch(table.patch_pages(
+                    int(pages[0]), spec.num_shards, spec.pages_per_shard))
         applied = int(live.sum())
         idx.counters.inserts += applied
         self.stats.drained_rows += applied

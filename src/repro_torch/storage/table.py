@@ -13,8 +13,9 @@ range) and ``delete_rows`` (by row id, the port's own), which mark tuples
 invalid and set the per-page ``dirty`` note that VACUUM consumes (§5.2),
 ``clear_dirty`` and the rollback ``truncate_to``. Every mutation drops the
 unsharded view and marks the slab view stale, so the next query uploads the
-table again, unless the writer patches the slabs its mutation touched back
-into the cached view (``refresh_shard_slabs``), or the bits a row delete
+table again, unless the writer patches its mutation back into the cached
+view: the pages an insert drain appended (``patch_pages``), the slabs a
+range delete touched (``refresh_shard_slabs``), or the bits a row delete
 cleared (``patch_rows``).
 
 Device views follow the port's device rule: ``device=None`` is the card.
@@ -43,7 +44,7 @@ class PagedTable:
     _dev: tuple | None = field(default=None, repr=False, compare=False)
     _dev_shard: tuple | None = field(default=None, repr=False, compare=False)
     # Mutations mark the slab view stale instead of dropping it (as the
-    # reference does, for the writer's single-slab patch).
+    # reference does, for the writer's in-place patches).
     _dev_shard_stale: bool = field(default=False, repr=False, compare=False)
 
     def __post_init__(self):
@@ -196,6 +197,44 @@ class PagedTable:
             nbytes += hk.nbytes + hv.nbytes
         key = (num_shards, pages_per_shard, self.num_pages, dev)
         self._dev_shard = (key, keys_dev, valid_dev)
+        self._dev_shard_stale = False
+        return nbytes
+
+    def patch_pages(self, first_page: int, num_shards: int,
+                    pages_per_shard: int) -> int | None:
+        """Copy pages ``[first_page, num_pages)`` into the cached slab view,
+        in place, after appends.
+
+        Contract: the view was fresh before the mutations, and every change
+        since is confined to pages at or after ``first_page`` (appends write
+        only forward of the tail; the view's pages past its page count are
+        zero padding). A global page id is its row in the view's flat
+        (S·PPS, C) form, so the patch gathers those pages into a fresh
+        page-locked host buffer per tensor (a later append cannot race its
+        upload) and uploads each into its rows with one non-blocking copy;
+        the view's key takes the table's page count and the view turns
+        fresh. Returns the host-to-device bytes copied; None if there is no
+        compatible view, or the table outgrew the layout (the next
+        ``device_*_sharded`` call then rebuilds it whole).
+        """
+        if self._dev_shard is None:
+            return None
+        (cs, cpps, _, dev), keys_dev, valid_dev = self._dev_shard
+        total = num_shards * pages_per_shard
+        if (cs, cpps) != (num_shards, pages_per_shard) \
+                or total < self.num_pages:
+            return None
+        lo, hi = first_page, self.num_pages
+        nbytes = 0
+        for host, view in ((self.keys, keys_dev), (self.valid, valid_dev)):
+            buf = torch.empty((hi - lo, self.page_card), dtype=view.dtype,
+                              pin_memory=dev.type == "cuda" and hi > lo)
+            buf.numpy()[:] = host[lo:hi]
+            view.view(total, self.page_card)[lo:hi].copy_(buf,
+                                                          non_blocking=True)
+            nbytes += buf.numel() * buf.element_size()
+        self._dev_shard = ((num_shards, pages_per_shard, hi, dev), keys_dev,
+                           valid_dev)
         self._dev_shard_stale = False
         return nbytes
 

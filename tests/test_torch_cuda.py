@@ -715,6 +715,57 @@ def test_writer_engine_on_card_equals_cpu(policy):
 
 
 @needs_cuda
+def test_insert_drain_patch_makes_no_host_sync(monkeypatch):
+    """An insert drain's slab patch (``PagedTable.patch_pages``) on a card
+    index runs under ``torch.cuda.set_sync_debug_mode("error")``: one
+    page-locked upload a tensor, no pageable copy. The patched view equals
+    a whole upload of the host table, and the counts the CPU's."""
+    rng = np.random.default_rng(10)
+    vals = rng.integers(0, 2555, 40_037).astype(np.float32)
+    writes = rng.integers(0, 2555, (4, 120)).astype(np.float32)
+    preds = [Predicate.between(float(lo), float(lo + 30))
+             for lo in range(0, 2555, 100)]
+    patch, patched = PagedTable.patch_pages, []
+
+    def strict(self, *a):
+        if not patched:                     # the first pins its blocks
+            patched.append(patch(self, *a))
+            return patched[-1]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            patched.append(patch(self, *a))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return patched[-1]
+
+    monkeypatch.setattr(PagedTable, "patch_pages", strict)
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        sidx = ShardedHippoIndex.create(PagedTable.from_values(vals, 50),
+                                        num_shards=4, device=dev)
+        eng = QueryEngine(sidx, batch=32, drain_policy="manual",
+                          auto_resummarize=False)
+        table = sidx.table
+        counts[dev] = [eng.run_all(preds).tolist()]     # a fresh slab view
+        views = table._dev_shard[1:]
+        for row in writes:
+            for v in row:
+                eng.write(float(v))
+            eng.writer.drain(1)
+            assert table.slab_view_fresh
+            assert all(a is b for a, b in zip(table._dev_shard[1:], views))
+            counts[dev].append(eng.run_all(preds).tolist())
+        for host, view in ((table.keys, views[0]), (table.valid, views[1])):
+            whole = torch.zeros(view.shape, dtype=view.dtype).view(-1, 50)
+            whole[: table.num_pages] = torch.from_numpy(
+                host[: table.num_pages])
+            assert torch.equal(view.cpu().view(-1, 50), whole)
+    assert len(patched) == 2 * len(writes) and all(patched)
+    assert counts["cuda"] == counts["cpu"]
+
+
+@needs_cuda
 def test_learned_index_on_card_equals_cpu():
     rng = np.random.default_rng(8)
     vals = rng.integers(1, 51, 40_000).astype(np.float32)

@@ -12,8 +12,9 @@ the CPU.
   around the engine's calls, outside every batch; ``hippo.writer.insert``
   and ``hippo.writer.vacuum`` inside a batch's drain, and
   ``hippo.writer.patch`` inside the insert drain and the row delete.
-  ``WriterStats.rows_deleted`` and ``patch_bytes`` count a whole-slab patch
-  at its slab's bytes and a row delete at its ids' alone.
+  ``WriterStats.rows_deleted`` and ``patch_bytes`` count an insert drain's
+  patch at the bytes of the pages it appended to, a range delete's at its
+  dirty slabs' whole bytes and a row delete's at its ids' alone.
 """
 import dataclasses
 
@@ -198,19 +199,19 @@ def test_writer_counts_rows_deleted_and_patch_bytes():
     for v in NEW_ROWS:
         eng.write(v)
     eng.flush()
-    # the drain patches shard 1's whole slab: 83 loaded pages and the one
-    # the 40 rows opened, 50 keys (4 B) and valid bytes (1 B) a page
+    # the drain patches only the page the 40 rows opened (the loaded pages
+    # were full): 50 keys (4 B) and valid bytes (1 B)
     assert table.num_pages == 181
-    assert st.patch_bytes == 84 * 50 * 5 == 21_000
+    assert st.patch_bytes == 1 * 50 * 5 == 250
     assert eng.delete_rows([0, 1, 2, 2, 9039]) == 4
-    assert (st.rows_deleted, st.patch_bytes) == (4, 21_000 + 4 * 8)
+    assert (st.rows_deleted, st.patch_bytes) == (4, 250 + 4 * 8)
     assert eng.delete_rows([0, 1]) == 0            # nothing left to patch
-    assert (st.rows_deleted, st.patch_bytes) == (4, 21_032)
+    assert (st.rows_deleted, st.patch_bytes) == (4, 282)
     # a range delete patches each dirty shard's whole slab; shard 0 has 97
     # pages and every page holds one of the 2,555 days' rows in range
     eng.flush()
     assert eng.delete(0.0, 2600.0) > 0
-    assert st.patch_bytes == 21_032 + (97 + 84) * 250
+    assert st.patch_bytes == 282 + (97 + 84) * 250
     assert st.rows_deleted == 4
     # with no view to patch a row delete counts its rows and no bytes
     eng.flush()
@@ -218,4 +219,4 @@ def test_writer_counts_rows_deleted_and_patch_bytes():
     eng.write(7.0)
     eng.flush()
     assert eng.delete_rows([9040]) == 1
-    assert (st.rows_deleted, st.patch_bytes) == (5, 21_032 + 181 * 250)
+    assert (st.rows_deleted, st.patch_bytes) == (5, 282 + 181 * 250)

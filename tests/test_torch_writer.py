@@ -248,6 +248,103 @@ def test_slab_view_patched_in_place():
     assert not table.refresh_shard_slabs([0], 2, t.spec.pages_per_shard)
 
 
+def _ref_delete_rows(table, ids) -> None:
+    """The port's ``PagedTable.delete_rows`` on the reference's table, which
+    has none: the same bits cleared, the same dirty notes."""
+    pages, slots = np.divmod(np.asarray(ids, np.int64), table.page_card)
+    hit = table.valid[pages, slots]
+    table.valid[pages[hit], slots[hit]] = False
+    touched = np.unique(pages[hit])
+    table.num_dirty += int((~table.dirty[touched]).sum())
+    table.dirty[touched] = True
+    table._dev = None
+    table._dev_shard_stale = True
+
+
+# loaded rows (8 a page, 10 pages a shard), staged rows, pages the drain
+# appends to
+PATCH_CASES = {
+    "partial_tail": (205, 2, 1),       # page 25 has room for both
+    "full_tail": (200, 3, 1),          # page 25 opens
+    "several_pages": (205, 30, 5),     # pages 25-29
+    "dead_staged": (205, 20, 4),       # pages 25-28, half the rows killed
+    "row_deletes": (205, 5, 2),        # pages 25-26, tail ids deleted
+    "grows_table": (205, 30, 5),       # no spare page: the host table grows
+    "empty_slab": (160, 4, 1),         # page 20 opens shard 2's slab
+}
+
+
+@pytest.mark.parametrize("case", list(PATCH_CASES))
+def test_insert_drain_patches_only_its_pages(case):
+    loaded, staged, patched = PATCH_CASES[case]
+    rng = np.random.default_rng(43)
+    j, t = _pair(rng.uniform(0, 100, loaded), pages_per_shard=10,
+                 spare_pages=0 if case == "grows_table" else 64)
+    kw = dict(batch=4, drain_policy="manual", auto_resummarize=False, top_k=6)
+    je, te = JEngine(j, **kw), TEngine(t, **kw)
+    jp, tp = _preds(rng, 3)
+    table = t.table
+    _run_equal(je, te, jp, tp)                 # builds the slab views
+    views = table._dev_shard[1:]
+
+    def assert_fresh(what):
+        assert table.slab_view_fresh, what
+        assert table._dev_shard[0][2] == table.num_pages, what
+        assert all(a is b for a, b in zip(table._dev_shard[1:], views)), what
+        for host, view in ((table.keys, views[0]), (table.valid, views[1])):
+            whole = torch.zeros_like(view).view(-1, table.page_card)
+            whole[: table.num_pages] = torch.from_numpy(
+                host[: table.num_pages])
+            assert torch.equal(view.view(-1, table.page_card), whole), what
+
+    def delete_rows(ids):
+        _ref_delete_rows(j.table, ids)
+        assert te.delete_rows(ids) == len(ids)
+        assert_fresh(f"delete_rows {ids}")
+
+    if case == "row_deletes":
+        delete_rows([203, 204])                # the partial tail page
+    values = rng.uniform(0, 100, staged)
+    if case == "dead_staged":
+        values[::2] += 200.0
+    for v in values:
+        je.write(float(v))
+        te.write(float(v))
+    if case == "dead_staged":
+        # only staged rows in range: the table and its view stay as they were
+        assert je.delete(200.0, 400.0) == te.delete(200.0, 400.0) == 10
+        assert table.slab_view_fresh
+    before = te.writer.stats.patch_bytes
+    je.writer.drain(1)
+    te.writer.drain(1)                         # the insert queue only
+    assert te.writer.queue_depth == 0
+    assert te.writer.stats.patch_bytes - before == \
+        patched * table.page_card * 5
+    assert_fresh("after the drain")
+    _assert_index_equal(j, t)
+    _run_equal(je, te, jp, tp)
+    if case == "row_deletes":
+        delete_rows([205, 207])                # drained rows, tail page 25
+        assert je.flush() == te.flush() == 0   # the vacuums
+        _assert_index_equal(j, t)
+        _run_equal(je, te, jp, tp)
+    if case == "grows_table":
+        assert table.capacity_pages > loaded // 8 + 1
+    first = table.num_pages - 1
+    # another layout, no view, a table past the layout: nothing patched
+    assert table.patch_pages(first, 2, 20) is None
+    assert table.slab_view_fresh
+    table._dev_shard = None
+    assert table.patch_pages(first, 4, 10) is None
+    _run_equal(je, te, jp, tp)                 # the next read rebuilds it
+    views = table._dev_shard[1:]
+    assert_fresh("rebuilt")
+    table.append(np.zeros(21 * table.page_card, np.float32))
+    assert table.num_pages > 40
+    assert table.patch_pages(first, 4, 10) is None
+    assert not table.slab_view_fresh
+
+
 # ---------------------------------------------------------------------------
 # Refusals: same message, same rollback
 # ---------------------------------------------------------------------------
