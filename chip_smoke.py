@@ -38,8 +38,8 @@ each of which exits nonzero on failure:
    ``QueryEngine(drain_policy="sync")`` 64 ``write``s and one ``delete`` of
    one day, which vacuums every shard; then 8 rounds of one ``write`` and
    one compact batch of 64 predicates, each batch timed with and without a
-   write before it (a write drops the table's device views, so the batch
-   after it uploads them again). Phase 2's 256 predicates then run through
+   write before it (the batch after a write copies the page it changed
+   into the table's slab view). Phase 2's 256 predicates then run through
    both compact engines again and every count and row-id list must equal a
    brute-force scan of the mutated table on the card; the bucket probe, the
    filter and the inspection must have launched. A ``maintenance`` JSON
@@ -1145,22 +1145,21 @@ def writer_phase(torch, args, K, intervals, Predicate, QueryEngine,
             drains[kind].append(dt)
         return rows
 
-    def timed_patch(patch, extent):
-        def call(*a):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            ok = patch(*a)
-            torch.cuda.synchronize()
-            patches.append((time.perf_counter() - t, extent(a), ok))
-            return ok
-        return call
+    sync = table.sync_slab_view
+
+    def timed_sync():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nbytes = sync()
+        torch.cuda.synchronize()
+        # an insert drain copies the pages it appended, a delete the slabs
+        # it hit: 4 B of key and 1 B of valid a tuple
+        patches.append((time.perf_counter() - t,
+                        f"{nbytes // (table.page_card * 5)} pages", nbytes))
+        return nbytes
 
     writer.drain = timed_drain
-    # an insert drain patches the pages it appended, a delete whole slabs
-    table.patch_pages = timed_patch(
-        table.patch_pages, lambda a: f"{table.num_pages - a[0]} pages")
-    table.refresh_shard_slabs = timed_patch(
-        table.refresh_shard_slabs, lambda a: f"{len(set(a[0]))} slabs")
+    table.sync_slab_view = timed_sync
     served = {"with_drain": [], "no_drain": []}
 
     def round_(what: str, pending: np.ndarray) -> None:
@@ -1230,7 +1229,7 @@ def writer_phase(torch, args, K, intervals, Predicate, QueryEngine,
     if writer.pending_units or table.num_dirty:
         fail(f"{writer.pending_units} units and {table.num_dirty} dirty "
              f"pages left after the vacuum batches")
-    del writer.drain, table.patch_pages, table.refresh_shard_slabs
+    del writer.drain, table.sync_slab_view
     launches = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     st = eng.stats

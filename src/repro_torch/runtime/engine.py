@@ -430,7 +430,9 @@ class QueryEngine:
         (IndexError), ids already deleted count 0. Returns tuples deleted."""
         with span("hippo.engine.delete_rows"):
             if self.writer is None:
-                n = self._delete_rows_sync(row_ids)
+                n = int(self.index.table.delete_rows(row_ids).size)
+                if n:   # the vacuum's read brings the slab view in step
+                    self.index.vacuum()
                 self.stats.deletes += n
                 return n
             n = self.writer.delete_rows(row_ids)
@@ -440,20 +442,6 @@ class QueryEngine:
                 self._drain(None)
             self._sync_writer_stats()
             return n
-
-    def _delete_rows_sync(self, row_ids) -> int:
-        """The sync path: the table, a fresh slab view of a sharded index
-        patched in place (so the vacuum reads it without a re-upload), then
-        the vacuum."""
-        table = self.index.table
-        spec = getattr(self.index, "spec", None)
-        was_fresh = table.slab_view_fresh
-        ids = table.delete_rows(row_ids)
-        if ids.size:
-            if spec is not None and was_fresh:
-                table.patch_rows(ids, spec.num_shards, spec.pages_per_shard)
-            self.index.vacuum()
-        return int(ids.size)
 
     def flush(self) -> int:
         """Drain every pending remap, shard queue and vacuum now. Returns

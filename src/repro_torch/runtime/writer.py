@@ -15,8 +15,10 @@ rebuilt while every other shard keeps serving. Lifecycle, per shard:
            counts only, never in row ids or page masks. ``delete(lo, hi)``
            marks table tuples invalid at once and kills staged rows in range;
            ``delete_rows(ids)`` marks exactly the table tuples at those row
-           ids invalid (a staged row has no id until its drain) and clears
-           their bits in the cached slab view in place.
+           ids invalid (a staged row has no id until its drain). Each
+           brings the table's cached slab view in step at once
+           (``PagedTable.sync_slab_view``: the slabs a range delete hit,
+           the bits of the deleted ids).
   drain    between engine batches the writer takes one shard's whole queue,
            appends it to the table (``PagedTable.append``: the pages and fills
            of the reference's per-value inserts) and applies Algorithm 3 to a
@@ -28,10 +30,8 @@ rebuilt while every other shard keeps serving. Lifecycle, per shard:
            order, so staged page ids land where stage-time routing put them.
   swap     one assignment publishes the rebuilt shard and its summary, and
            the table copies the pages the drain appended, from the old tail
-           page on, into the cached device view (``patch_pages``) if the
-           view was fresh before; a range delete's dirty slabs are patched
-           whole (``refresh_shard_slabs``). While the
-           swap is in flight the index refuses queries and maintenance
+           page on, into its cached slab view (``sync_slab_view``). While
+           the swap is in flight the index refuses queries and maintenance
            (``swap_in_flight``).
 
 A drain that refuses (slot capacity) rolls the table back to its pre-drain
@@ -240,19 +240,12 @@ class MaintenanceWriter:
         if self.journal is not None:
             self.journal.append_delete(float(lo), float(hi))
         table = self.index.table
-        spec = self.index.spec
-        was_fresh = table.slab_view_fresh
         n = table.delete_where(lo, hi)
         if n:
             self._dirty_since_checkpoint.update(
                 int(s) for s in self.index.dirty_shards())
-        if n and was_fresh:
-            # every mutated page carries a dirty note until its vacuum, so
-            # the dirty owners are exactly the slabs to patch
             with span("hippo.writer.patch"):
-                self._count_patch(table.refresh_shard_slabs(
-                    self.index.dirty_shards(), spec.num_shards,
-                    spec.pages_per_shard))
+                self.stats.patch_bytes += table.sync_slab_view()
         killed = 0
         for q in self._queues.values():
             killed += q.kill_range(lo, hi)
@@ -267,12 +260,12 @@ class MaintenanceWriter:
         invalid now, exactly those; their pages take dirty notes, so their
         shards queue vacuum units as ``delete``'s do. The host work grows
         with the ids, not with the table: the shards come from the ids' own
-        pages, and a fresh slab view has just those tuples' bits cleared in
-        place (``PagedTable.patch_rows``). Refused before any change: an id
-        past the table's tail (a staged row has no id until its drain;
-        IndexError), and any call while a journal is attached (it has no
-        record for a row delete). Ids already deleted count 0; returns the
-        tuples deleted."""
+        pages, and the cached slab view has just those tuples' bits cleared
+        in place (``PagedTable.sync_slab_view``). Refused before any
+        change: an id past the table's tail (a staged row has no id until
+        its drain; IndexError), and any call while a journal is attached
+        (it has no record for a row delete). Ids already deleted count 0;
+        returns the tuples deleted."""
         self.index._check_swap_guard()
         self._check_attached()
         if self.journal is not None:
@@ -281,25 +274,15 @@ class MaintenanceWriter:
                 "for a row delete, so it could not survive a crash; delete "
                 "by key range, or serve row deletes without storage_dir")
         table = self.index.table
-        spec = self.index.spec
-        was_fresh = table.slab_view_fresh
         ids = table.delete_rows(row_ids)
         if ids.size:
             pages = ids // table.page_card
-            self._dirty_since_checkpoint.update(
-                int(s) for s in np.unique(pages // spec.pages_per_shard))
-            if was_fresh:
-                with span("hippo.writer.patch"):
-                    self._count_patch(table.patch_rows(
-                        ids, spec.num_shards, spec.pages_per_shard))
+            self._dirty_since_checkpoint.update(int(s) for s in np.unique(
+                pages // self.index.spec.pages_per_shard))
+            with span("hippo.writer.patch"):
+                self.stats.patch_bytes += table.sync_slab_view()
         self.stats.rows_deleted += int(ids.size)
         return int(ids.size)
-
-    def _count_patch(self, nbytes: int | None) -> None:
-        """Count a slab patch's host-to-device bytes (None: no view was
-        patched)."""
-        if nbytes:
-            self.stats.patch_bytes += nbytes
 
     # -- introspection -------------------------------------------------------
 
@@ -503,7 +486,7 @@ class MaintenanceWriter:
     def _drain_shard(self, s: int) -> int:
         """Drain shard s's queue: append it to the table, apply Algorithm 3
         to a copy of the shard's state, swap it in, and copy the pages it
-        appended to into a slab view that was fresh before."""
+        appended to into the table's cached slab view."""
         idx = self.index
         table = idx.table
         spec = idx.spec
@@ -512,21 +495,18 @@ class MaintenanceWriter:
         values = np.asarray(q.values, np.float32)
         live = np.asarray(q.live, bool)
         snap_pages, snap_fill = table.num_pages, table.fill
-        was_fresh = table.slab_view_fresh
         idx.swap_in_flight = s
         try:
             # the shard's tensors as views: every update below makes copies
             st = hix.shard_state(idx.state.shards, s)
-            offs = (self._tail_pos() + np.arange(values.size)) % table.page_card
-            pages = table.append(values)
+            # dead staged rows occupy their predicted slots but never go
+            # live: they keep later queues' page routing exact
+            pages = table.append(values, live)
             if pages.size and not (pages // spec.pages_per_shard == s).all():
                 raise RuntimeError(
                     f"writer invariant violated: shard {s} drain appended "
                     f"pages outside its slab (was the table mutated behind "
                     f"the staged queues?)")
-            # dead staged rows occupy their predicted slots but never go
-            # live: they keep later queues' page routing exact
-            table.valid[pages[~live], offs[~live]] = False
             lp = pages - spec.page_lo(s)
             # Algorithm 3 against the copy: one OR for the live tuples on
             # pages summarized before the drain ...
@@ -562,12 +542,8 @@ class MaintenanceWriter:
         self._version += 1
         self._dev_cache = None
         self._dirty_since_checkpoint.add(s)
-        if was_fresh:
-            # appends write only forward of the old tail: patch from the
-            # first page this drain appended to
-            with span("hippo.writer.patch"):
-                self._count_patch(table.patch_pages(
-                    int(pages[0]), spec.num_shards, spec.pages_per_shard))
+        with span("hippo.writer.patch"):
+            self.stats.patch_bytes += table.sync_slab_view()
         applied = int(live.sum())
         idx.counters.inserts += applied
         self.stats.drained_rows += applied

@@ -12,11 +12,12 @@ Mutations are host-side numpy, as in the reference: appends (``insert``,
 range) and ``delete_rows`` (by row id, the port's own), which mark tuples
 invalid and set the per-page ``dirty`` note that VACUUM consumes (§5.2),
 ``clear_dirty`` and the rollback ``truncate_to``. Every mutation drops the
-unsharded view and marks the slab view stale, so the next query uploads the
-table again, unless the writer patches its mutation back into the cached
-view: the pages an insert drain appended (``patch_pages``), the slabs a
-range delete touched (``refresh_shard_slabs``), or the bits a row delete
-cleared (``patch_rows``).
+unsharded view. The cached slab view instead notes what each mutation
+changed (the first page an append wrote, the slabs a range delete hit, the
+row ids a row delete cleared) and ``sync_slab_view`` copies just that into
+it, in place; every read of the view applies what is pending first, so no
+mutation makes a reader upload the table again. A rollback, or a table
+that outgrew the view's slabs, drops the view.
 
 Device views follow the port's device rule: ``device=None`` is the card.
 """
@@ -31,6 +32,22 @@ from repro_torch.device import resolve_device
 
 
 @dataclass
+class _SlabView:
+    """The cached (S, PPS, page_card) device views and what the host table
+    changed since they were last in step with it."""
+    layout: tuple                   # (num_shards, pages_per_shard, device)
+    keys: torch.Tensor
+    valid: torch.Tensor
+    first_page: int | None = None   # the first page appended to
+    slabs: set = field(default_factory=set)     # slabs a range delete hit
+    ids: list = field(default_factory=list)     # row ids a row delete cleared
+
+    @property
+    def pending(self) -> bool:
+        return self.first_page is not None or bool(self.slabs or self.ids)
+
+
+@dataclass
 class PagedTable:
     page_card: int
     capacity_pages: int
@@ -42,10 +59,8 @@ class PagedTable:
     num_dirty: int = 0                          # pages with a pending VACUUM note
     payload: dict = field(default_factory=dict)  # name -> (capacity, page_card) array
     _dev: tuple | None = field(default=None, repr=False, compare=False)
-    _dev_shard: tuple | None = field(default=None, repr=False, compare=False)
-    # Mutations mark the slab view stale instead of dropping it (as the
-    # reference does, for the writer's in-place patches).
-    _dev_shard_stale: bool = field(default=False, repr=False, compare=False)
+    _dev_shard: _SlabView | None = field(default=None, repr=False,
+                                         compare=False)
 
     def __post_init__(self):
         if self.keys is None:
@@ -127,157 +142,118 @@ class PagedTable:
     # -- sharded device views (core.partition slab layout) -------------------
 
     def _shard_views(self, num_shards: int, pages_per_shard: int,
-                     device) -> tuple:
-        """(keys, valid) slabs of shape (S, PPS, page_card) on ``device``,
-        cached like ``_device_views``. Slab pages beyond ``num_pages`` are
-        invalid padding."""
+                     device) -> _SlabView:
+        """The slab view: keys and valid of shape (S, PPS, page_card) on
+        ``device``, cached per layout and brought in step with the host by
+        ``sync_slab_view``. Slab pages beyond ``num_pages`` are invalid
+        padding."""
         dev = resolve_device(device)
-        key = (num_shards, pages_per_shard, self.num_pages, dev)
-        if (self._dev_shard is None or self._dev_shard_stale
-                or self._dev_shard[0] != key):
-            total = num_shards * pages_per_shard
-            if total < self.num_pages:
-                raise ValueError(
-                    f"slab layout {num_shards}x{pages_per_shard} covers {total} "
-                    f"pages < table's {self.num_pages}")
-            shape = (num_shards, pages_per_shard, self.page_card)
-            self._dev_shard = None      # free the old views before allocating
-            keys = torch.zeros(shape, dtype=torch.float32, device=dev)
-            valid = torch.zeros(shape, dtype=torch.bool, device=dev)
-            n = self.num_pages
-            keys.view(total, self.page_card)[:n] = \
-                torch.from_numpy(self.keys[:n]).to(dev)
-            valid.view(total, self.page_card)[:n] = \
-                torch.from_numpy(self.valid[:n]).to(dev)
-            self._dev_shard = (key, keys, valid)
-            self._dev_shard_stale = False
+        layout = (num_shards, pages_per_shard, dev)
+        v = self._dev_shard
+        if v is not None and v.layout == layout:
+            if v.pending:
+                self.sync_slab_view()
+            return v
+        total = num_shards * pages_per_shard
+        if total < self.num_pages:
+            raise ValueError(
+                f"slab layout {num_shards}x{pages_per_shard} covers {total} "
+                f"pages < table's {self.num_pages}")
+        shape = (num_shards, pages_per_shard, self.page_card)
+        self._dev_shard = None          # free the old views before allocating
+        keys = torch.zeros(shape, dtype=torch.float32, device=dev)
+        valid = torch.zeros(shape, dtype=torch.bool, device=dev)
+        n = self.num_pages
+        keys.view(total, self.page_card)[:n] = \
+            torch.from_numpy(self.keys[:n]).to(dev)
+        valid.view(total, self.page_card)[:n] = \
+            torch.from_numpy(self.valid[:n]).to(dev)
+        self._dev_shard = _SlabView(layout, keys, valid)
         return self._dev_shard
 
-    @property
-    def slab_view_fresh(self) -> bool:
-        """A slab view is cached and every mutation since is patched in."""
-        return self._dev_shard is not None and not self._dev_shard_stale
+    def sync_slab_view(self) -> int:
+        """Copy what the host changed since the cached slab view was last in
+        step into it, in place; returns the host-to-device bytes copied (0
+        with no view, or nothing pending).
 
-    def _host_slab(self, s: int, pages_per_shard: int
-                   ) -> tuple[np.ndarray, np.ndarray]:
-        """(keys, valid) host views of the table's pages in shard s's slab
-        (at most ``pages_per_shard``; the slab's other pages are padding)."""
-        lo = s * pages_per_shard
-        hi = max(min(lo + pages_per_shard, self.num_pages), lo)
-        return self.keys[lo:hi], self.valid[lo:hi]
-
-    def refresh_shard_slabs(self, shard_ids, num_shards: int,
-                            pages_per_shard: int) -> int | None:
-        """Patch a stale slab view in place after shard-local mutations.
-
-        Contract (as the reference's): every mutation since the view went
-        stale is confined to the slabs in ``shard_ids``. Each touched slab's
-        pages are copied host-to-device once into the cached (S, PPS, C)
-        views (its padding pages zeroed) and the view's key takes the
-        table's page count. Returns the host-to-device bytes copied if the
-        view was patched; None if there is no compatible view, or the table
-        outgrew the layout (the next ``device_*_sharded`` call then rebuilds
-        it whole).
+        A global page id is its row in the view's flat (S·PPS, C) form, and
+        a global row id its element. The pages from the first one appended
+        to the table's end, and each slab a range delete hit, are gathered,
+        each page once, into a fresh page-locked buffer per tensor (a later
+        mutation cannot race its upload) and uploaded with one non-blocking
+        copy per contiguous run; the view's pages past ``num_pages`` stay
+        zero padding. Then the row ids deleted by id, in one page-locked
+        upload, have their valid bits cleared by one indexed store. Both
+        read the host, so their order does not matter.
         """
-        if self._dev_shard is None:
-            return None
-        (cs, cpps, _, dev), keys_dev, valid_dev = self._dev_shard
-        if (cs, cpps) != (num_shards, pages_per_shard):
-            return None
-        if num_shards * pages_per_shard < self.num_pages:
-            return None                      # table outgrew the layout
+        v = self._dev_shard
+        if v is None:
+            return 0
+        _, pps, dev = v.layout
+        n, c = self.num_pages, self.page_card
+        pin = dev.type == "cuda"
+        runs = [(s * pps, min(s * pps + pps, n)) for s in v.slabs]
+        if v.first_page is not None:
+            runs.append((v.first_page, n))
+        merged: list[list[int]] = []
+        for lo, hi in sorted(runs):     # each run is a page or more
+            if merged and lo <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], hi)
+            else:
+                merged.append([lo, hi])
+        rows = sum(hi - lo for lo, hi in merged)
         nbytes = 0
-        for s in sorted(set(int(s) for s in shard_ids)):
-            hk, hv = self._host_slab(s, pages_per_shard)
-            n = hk.shape[0]
-            keys_dev[s, :n].copy_(torch.from_numpy(hk))
-            valid_dev[s, :n].copy_(torch.from_numpy(hv))
-            keys_dev[s, n:].zero_()
-            valid_dev[s, n:].zero_()
-            nbytes += hk.nbytes + hv.nbytes
-        key = (num_shards, pages_per_shard, self.num_pages, dev)
-        self._dev_shard = (key, keys_dev, valid_dev)
-        self._dev_shard_stale = False
-        return nbytes
-
-    def patch_pages(self, first_page: int, num_shards: int,
-                    pages_per_shard: int) -> int | None:
-        """Copy pages ``[first_page, num_pages)`` into the cached slab view,
-        in place, after appends.
-
-        Contract: the view was fresh before the mutations, and every change
-        since is confined to pages at or after ``first_page`` (appends write
-        only forward of the tail; the view's pages past its page count are
-        zero padding). A global page id is its row in the view's flat
-        (S·PPS, C) form, so the patch gathers those pages into a fresh
-        page-locked host buffer per tensor (a later append cannot race its
-        upload) and uploads each into its rows with one non-blocking copy;
-        the view's key takes the table's page count and the view turns
-        fresh. Returns the host-to-device bytes copied; None if there is no
-        compatible view, or the table outgrew the layout (the next
-        ``device_*_sharded`` call then rebuilds it whole).
-        """
-        if self._dev_shard is None:
-            return None
-        (cs, cpps, _, dev), keys_dev, valid_dev = self._dev_shard
-        total = num_shards * pages_per_shard
-        if (cs, cpps) != (num_shards, pages_per_shard) \
-                or total < self.num_pages:
-            return None
-        lo, hi = first_page, self.num_pages
-        nbytes = 0
-        for host, view in ((self.keys, keys_dev), (self.valid, valid_dev)):
-            buf = torch.empty((hi - lo, self.page_card), dtype=view.dtype,
-                              pin_memory=dev.type == "cuda" and hi > lo)
-            buf.numpy()[:] = host[lo:hi]
-            view.view(total, self.page_card)[lo:hi].copy_(buf,
-                                                          non_blocking=True)
+        for host, view in ((self.keys, v.keys), (self.valid, v.valid)):
+            if not rows:
+                break
+            buf = torch.empty((rows, c), dtype=view.dtype, pin_memory=pin)
+            flat, at = view.view(-1, c), 0
+            for lo, hi in merged:
+                buf.numpy()[at: at + hi - lo] = host[lo:hi]
+                flat[lo:hi].copy_(buf[at: at + hi - lo], non_blocking=True)
+                at += hi - lo
             nbytes += buf.numel() * buf.element_size()
-        self._dev_shard = ((num_shards, pages_per_shard, hi, dev), keys_dev,
-                           valid_dev)
-        self._dev_shard_stale = False
+        if v.ids:
+            ids = np.concatenate(v.ids)
+            buf = torch.empty((ids.size,), dtype=torch.int64, pin_memory=pin)
+            buf.numpy()[:] = ids
+            v.valid.view(-1).index_fill_(0, buf.to(dev, non_blocking=True),
+                                         False)
+            nbytes += ids.nbytes
+        v.first_page, v.slabs, v.ids = None, set(), []
         return nbytes
-
-    def patch_rows(self, row_ids: np.ndarray, num_shards: int,
-                   pages_per_shard: int) -> int | None:
-        """Clear the valid bits of rows ``delete_rows`` just deleted in the
-        cached slab view, in place.
-
-        Contract: the view was fresh before that ``delete_rows`` and nothing
-        else mutated the table since. A global row id is its tuple's flat
-        index in the (S, PPS, C) view, so the patch is one page-locked
-        upload of the ids and one indexed store; the view turns fresh.
-        Returns the host-to-device bytes copied; None if there is no
-        compatible view (the next ``device_*_sharded`` call then rebuilds
-        it whole).
-        """
-        if self._dev_shard is None:
-            return None
-        (cs, cpps, n, dev), _, valid_dev = self._dev_shard
-        if (cs, cpps, n) != (num_shards, pages_per_shard, self.num_pages):
-            return None
-        ids = np.asarray(row_ids, np.int64).ravel()
-        host = torch.empty((ids.size,), dtype=torch.int64,
-                           pin_memory=dev.type == "cuda" and ids.size > 0)
-        host.numpy()[:] = ids
-        valid_dev.view(-1).index_fill_(0, host.to(dev, non_blocking=True),
-                                       False)
-        self._dev_shard_stale = False
-        return ids.nbytes
 
     def device_keys_sharded(self, num_shards: int, pages_per_shard: int,
                             device=None) -> torch.Tensor:
-        return self._shard_views(num_shards, pages_per_shard, device)[1]
+        return self._shard_views(num_shards, pages_per_shard, device).keys
 
     def device_valid_sharded(self, num_shards: int, pages_per_shard: int,
                              device=None) -> torch.Tensor:
-        return self._shard_views(num_shards, pages_per_shard, device)[2]
+        return self._shard_views(num_shards, pages_per_shard, device).valid
 
     # -- mutations (host side = buffer manager) ------------------------------
 
-    def _mutated(self) -> None:
+    def _mutated(self, first_page: int | None = None,
+                 pages: np.ndarray | None = None,
+                 ids: np.ndarray | None = None) -> None:
+        """Drop the unsharded view, and note in the slab view what changed:
+        appends from ``first_page`` on, a range delete's hit ``pages``, or a
+        row delete's ``ids``. Any other change, or a table past the view's
+        slabs, drops the slab view too."""
         self._dev = None
-        self._dev_shard_stale = True
+        v = self._dev_shard
+        if v is None:
+            return
+        num_shards, pps, _ = v.layout
+        if first_page is not None and self.num_pages <= num_shards * pps:
+            if v.first_page is None:    # appends only move forward
+                v.first_page = first_page
+        elif pages is not None:
+            v.slabs.update(np.unique(pages // pps).tolist())
+        elif ids is not None:
+            v.ids.append(ids)
+        else:
+            self._dev_shard = None
 
     def next_page_id(self) -> tuple[int, bool]:
         """(page the next append lands on, whether it opens a new page): the
@@ -298,7 +274,7 @@ class PagedTable:
         self.keys[p, self.fill] = np.float32(value)
         self.valid[p, self.fill] = True
         self.fill += 1
-        self._mutated()
+        self._mutated(first_page=p)
         return p, new_page
 
     def append_pages(self, n: int) -> np.ndarray:
@@ -308,10 +284,13 @@ class PagedTable:
             if self.num_pages else 0
         return (base + np.arange(n, dtype=np.int64)) // self.page_card
 
-    def append(self, values: np.ndarray) -> np.ndarray:
+    def append(self, values: np.ndarray,
+               live: np.ndarray | None = None) -> np.ndarray:
         """Append ``values`` in order, as ``insert`` would one by one (the
         same pages and fills, and the same growth steps), in one vectorized
-        write; returns the (n,) page id of each."""
+        write; returns the (n,) page id of each. Rows where the bool mask
+        ``live`` is False take their slots but are never valid (the writer's
+        staged rows a delete overtook)."""
         values = np.asarray(values, np.float32).ravel()
         if values.size == 0:
             return np.zeros((0,), np.int64)
@@ -322,10 +301,10 @@ class PagedTable:
         while self.capacity_pages <= pages[-1]:
             self._grow()
         self.keys[pages, slots] = values
-        self.valid[pages, slots] = True
+        self.valid[pages, slots] = True if live is None else live
         self.num_pages = int(pages[-1]) + 1
         self.fill = int(slots[-1]) + 1
-        self._mutated()
+        self._mutated(first_page=int(pages[0]))
         return pages
 
     def insert_batch(self, values: np.ndarray) -> tuple[int, int]:
@@ -345,7 +324,7 @@ class PagedTable:
         self.num_dirty += int((npages & ~self.dirty[: self.num_pages]).sum())
         self.valid[: self.num_pages] &= ~hit
         self.dirty[: self.num_pages] |= npages
-        self._mutated()
+        self._mutated(pages=np.flatnonzero(npages))
         return int(hit.sum())
 
     def delete_rows(self, row_ids) -> np.ndarray:
@@ -371,7 +350,7 @@ class PagedTable:
         touched = np.unique(pages)
         self.num_dirty += int((~self.dirty[touched]).sum())
         self.dirty[touched] = True
-        self._mutated()
+        self._mutated(ids=ids)
         return ids
 
     def clear_dirty(self, page_ids: np.ndarray) -> None:

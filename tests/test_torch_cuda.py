@@ -716,8 +716,8 @@ def test_writer_engine_on_card_equals_cpu(policy):
 
 @needs_cuda
 def test_insert_drain_patch_makes_no_host_sync(monkeypatch):
-    """An insert drain's slab patch (``PagedTable.patch_pages``) on a card
-    index runs under ``torch.cuda.set_sync_debug_mode("error")``: one
+    """An insert drain's slab patch (``PagedTable.sync_slab_view``) on a
+    card index runs under ``torch.cuda.set_sync_debug_mode("error")``: one
     page-locked upload a tensor, no pageable copy. The patched view equals
     a whole upload of the host table, and the counts the CPU's."""
     rng = np.random.default_rng(10)
@@ -725,21 +725,21 @@ def test_insert_drain_patch_makes_no_host_sync(monkeypatch):
     writes = rng.integers(0, 2555, (4, 120)).astype(np.float32)
     preds = [Predicate.between(float(lo), float(lo + 30))
              for lo in range(0, 2555, 100)]
-    patch, patched = PagedTable.patch_pages, []
+    patch, patched = PagedTable.sync_slab_view, []
 
-    def strict(self, *a):
+    def strict(self):
         if not patched:                     # the first pins its blocks
-            patched.append(patch(self, *a))
+            patched.append(patch(self))
             return patched[-1]
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            patched.append(patch(self, *a))
+            patched.append(patch(self))
         finally:
             torch.cuda.set_sync_debug_mode(0)
         return patched[-1]
 
-    monkeypatch.setattr(PagedTable, "patch_pages", strict)
+    monkeypatch.setattr(PagedTable, "sync_slab_view", strict)
     counts = {}
     for dev in ("cuda", "cpu"):
         sidx = ShardedHippoIndex.create(PagedTable.from_values(vals, 50),
@@ -748,15 +748,15 @@ def test_insert_drain_patch_makes_no_host_sync(monkeypatch):
                           auto_resummarize=False)
         table = sidx.table
         counts[dev] = [eng.run_all(preds).tolist()]     # a fresh slab view
-        views = table._dev_shard[1:]
+        slabs = table._dev_shard
         for row in writes:
             for v in row:
                 eng.write(float(v))
             eng.writer.drain(1)
-            assert table.slab_view_fresh
-            assert all(a is b for a, b in zip(table._dev_shard[1:], views))
+            assert table._dev_shard is slabs and not slabs.pending
             counts[dev].append(eng.run_all(preds).tolist())
-        for host, view in ((table.keys, views[0]), (table.valid, views[1])):
+        for host, view in ((table.keys, slabs.keys),
+                           (table.valid, slabs.valid)):
             whole = torch.zeros(view.shape, dtype=view.dtype).view(-1, 50)
             whole[: table.num_pages] = torch.from_numpy(
                 host[: table.num_pages])

@@ -1,5 +1,6 @@
 """Row deletes (``QueryEngine.delete_rows``, ``MaintenanceWriter.delete_rows``,
-``PagedTable.delete_rows`` and ``patch_rows``) on small indexes on the CPU.
+``PagedTable.delete_rows`` and ``sync_slab_view``) on small indexes on the
+CPU.
 
 - Counts after row deletes equal a plain NumPy count over a model of the live
   rows, under the sync and writer-backed engines, with staged rows pending,
@@ -8,7 +9,8 @@
 - Deleting the rows a ``delete(lo, hi)`` would delete leaves the same table,
   the same index state after the vacuums and the same device slab.
 - After every row delete the slab view, patched in place, equals a fresh
-  upload of the host table.
+  upload of the host table; so does it at the read after each of the sync
+  engine's mutations, which copies only what the mutation changed.
 - Refusals leave everything as it was: an id past the tail (a staged row
   has no id), a negative id, a call with a journal attached, a call while a
   swap is in flight.
@@ -170,24 +172,64 @@ def test_the_patched_slab_equals_a_fresh_upload():
     table = eng.index.table
     preds = _preds(rng)
     eng.run_all(preds)
-    views = table._dev_shard[1:]
+    view = table._dev_shard
     for round_ in range(6):
         for v in rng.integers(0, 330, 12):
             eng.write(float(v))
         eng.run_all(preds[:8])                 # drains: the slab patch
         ids = rng.integers(0, VALUES.size + eng.writer.stats.drained_rows, 40)
         assert eng.delete_rows(ids) > 0
-        assert table._dev_shard is not None and not table._dev_shard_stale
-        assert all(a is b for a, b in zip(table._dev_shard[1:], views))
-        assert table._dev_shard[0][2] == table.num_pages
-        keys, valid = _fresh_upload(table, views[0].shape)
-        assert torch.equal(views[0], keys) and torch.equal(views[1], valid)
+        assert table._dev_shard is view and not view.pending
+        keys, valid = _fresh_upload(table, view.keys.shape)
+        assert torch.equal(view.keys, keys) and torch.equal(view.valid, valid)
+
+
+@pytest.mark.parametrize("mutation", ["write", "delete", "delete_rows"])
+def test_a_sync_mutation_is_patched_at_the_next_read(mutation, monkeypatch):
+    """The sync engine patches no view itself: the next read copies what
+    the mutation changed into the same view tensors."""
+    rng = np.random.default_rng(103)
+    eng = _engine("sharded", "sync")
+    table = eng.index.table
+    pps = eng.index.spec.pages_per_shard
+    model = Model()
+    preds = _preds(rng)
+    eng.run_all(preds)
+    view = table._dev_shard
+    copied, sync = [], PagedTable.sync_slab_view
+
+    def counted(self):
+        copied.append(sync(self))
+        return copied[-1]
+    monkeypatch.setattr(PagedTable, "sync_slab_view", counted)
+    if mutation == "write":
+        for v in (5.0, 6.0, 7.0):              # the tail page's free slots
+            model.write(eng, v)
+        want = 1 * PAGE_CARD * 5
+    elif mutation == "delete":
+        lo, hi = 100.0, 104.0
+        n = table.num_pages
+        hit = table.valid[:n] & (table.keys[:n] >= lo) & (table.keys[:n] <= hi)
+        model.delete(np.flatnonzero(hit.ravel()))
+        slabs = np.unique(np.flatnonzero(hit.any(axis=1)) // pps)
+        want = sum(min(pps, n - s * pps) for s in slabs) * PAGE_CARD * 5
+        assert eng.delete(lo, hi) == hit.sum() > 0      # and its vacuum
+    else:
+        ids = [3, 4, 995, 2402]
+        model.delete(ids)
+        assert eng.delete_rows(ids) == 4                # and its vacuum
+        want = 4 * 8
+    assert np.array_equal(eng.run_all(preds), model.counts(preds))
+    assert table._dev_shard is view and not view.pending
+    assert sum(copied) == want
+    keys, valid = _fresh_upload(table, view.keys.shape)
+    assert torch.equal(view.keys, keys) and torch.equal(view.valid, valid)
 
 
 def _snapshot(eng: QueryEngine) -> tuple:
     t = eng.index.table
-    return (t.valid.copy(), t.dirty.copy(), t.num_dirty, t._dev_shard_stale,
-            t._dev_shard[2].clone(), dataclasses.asdict(eng.writer.stats),
+    return (t.valid.copy(), t.dirty.copy(), t.num_dirty, t._dev_shard.pending,
+            t._dev_shard.valid.clone(), dataclasses.asdict(eng.writer.stats),
             eng.writer.queue_depth, eng.writer.staged_rows,
             dataclasses.asdict(eng.stats))
 
@@ -254,7 +296,6 @@ def test_a_row_delete_does_no_whole_table_work(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("whole-table work on the row-delete path")
     monkeypatch.setattr(PagedTable, "delete_where", refuse)
-    monkeypatch.setattr(PagedTable, "refresh_shard_slabs", refuse)
     monkeypatch.setattr(PagedTable, "_shard_views", refuse)
     monkeypatch.setattr(ShardedHippoIndex, "dirty_shards", refuse)
     stats = eng.writer.stats
@@ -264,7 +305,7 @@ def test_a_row_delete_does_no_whole_table_work(monkeypatch):
     # one 8 B id a deleted row, notes on the four pages it touched
     assert (stats.patch_bytes, stats.rows_deleted, table.num_dirty) == \
         (before[0] + 48, before[1] + 6, before[2] + 4)
-    assert not table._dev_shard_stale
+    assert not table._dev_shard.pending
     monkeypatch.undo()
     assert sorted(eng.writer.pending_vacuum_shards()) == \
         sorted({int(p) // eng.index.spec.pages_per_shard

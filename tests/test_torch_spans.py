@@ -148,7 +148,7 @@ def _writer_engine() -> QueryEngine:
     eng = QueryEngine(idx, batch=16, drain_units=2)
     eng.submit(Predicate.between(0.0, 2600.0))
     eng.run_batch()
-    assert not idx.table._dev_shard_stale
+    assert not idx.table._dev_shard.pending
     return eng
 
 
@@ -207,8 +207,8 @@ def test_writer_counts_rows_deleted_and_patch_bytes():
     assert (st.rows_deleted, st.patch_bytes) == (4, 250 + 4 * 8)
     assert eng.delete_rows([0, 1]) == 0            # nothing left to patch
     assert (st.rows_deleted, st.patch_bytes) == (4, 282)
-    # a range delete patches each dirty shard's whole slab; shard 0 has 97
-    # pages and every page holds one of the 2,555 days' rows in range
+    # a range delete patches each slab it hit whole; shard 0 has 97 pages
+    # and every page holds one of the 2,555 days' rows in range
     eng.flush()
     assert eng.delete(0.0, 2600.0) > 0
     assert st.patch_bytes == 282 + (97 + 84) * 250

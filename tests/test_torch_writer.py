@@ -218,34 +218,35 @@ def test_slab_view_patched_in_place():
     jp, tp = _preds(rng, 3)
     _run_equal(je, te, jp, tp)                 # builds the slab views
     table = t.table
-    assert table._dev_shard is not None and not table._dev_shard_stale
-    views = table._dev_shard[1:]
+    view = table._dev_shard
+    assert view is not None and not view.pending
     for v in rng.uniform(0, 100, 10):
         je.write(float(v))
         te.write(float(v))
     assert je.flush() == te.flush() == 10
-    assert not table._dev_shard_stale          # patched, not invalidated
-    assert table._dev_shard[0][2] == table.num_pages
-    assert all(a is b for a, b in zip(table._dev_shard[1:], views))
+    assert table._dev_shard is view            # patched, not dropped
+    assert not view.pending
     keys, valid = t._slabs()
+    assert keys is view.keys and valid is view.valid
     jk, jv = j._slabs()
     _assert_equal(jk, keys, "patched keys")
     _assert_equal(jv, valid, "patched valid")
-    # a delete patches every dirty shard's slab the same way
+    # a delete patches the slabs it hit the same way
     assert je.delete(10.0, 80.0) == te.delete(10.0, 80.0) > 0
-    assert not table._dev_shard_stale
+    assert table._dev_shard is view and not view.pending
     _assert_equal(j._slabs()[1], t._slabs()[1], "valid after delete")
     _run_equal(je, te, jp, tp)
     assert je.flush() == te.flush() == 0       # the vacuums
-    # with no fresh view, a drain leaves the rebuild to the next read
+    # with no view, a drain leaves the upload to the next read
     table._dev_shard = None
     for e in (je, te):
         e.write(50.0)
         e.flush()
     assert table._dev_shard is None
-    assert not table.refresh_shard_slabs([0], 4, t.spec.pages_per_shard)
+    assert table.sync_slab_view() == 0
     _run_equal(je, te, jp, tp)
-    assert not table.refresh_shard_slabs([0], 2, t.spec.pages_per_shard)
+    assert not table._dev_shard.pending
+    assert table.sync_slab_view() == 0         # nothing pending
 
 
 def _ref_delete_rows(table, ids) -> None:
@@ -258,7 +259,7 @@ def _ref_delete_rows(table, ids) -> None:
     table.num_dirty += int((~table.dirty[touched]).sum())
     table.dirty[touched] = True
     table._dev = None
-    table._dev_shard_stale = True
+    table._dev_shard_stale = True              # the reference's own flag
 
 
 # loaded rows (8 a page, 10 pages a shard), staged rows, pages the drain
@@ -271,6 +272,7 @@ PATCH_CASES = {
     "row_deletes": (205, 5, 2),        # pages 25-26, tail ids deleted
     "grows_table": (205, 30, 5),       # no spare page: the host table grows
     "empty_slab": (160, 4, 1),         # page 20 opens shard 2's slab
+    "range_delete": (205, 30, 10),     # pages 25-29 and slab 2 (20-29), once
 }
 
 
@@ -285,17 +287,15 @@ def test_insert_drain_patches_only_its_pages(case):
     jp, tp = _preds(rng, 3)
     table = t.table
     _run_equal(je, te, jp, tp)                 # builds the slab views
-    views = table._dev_shard[1:]
+    view = table._dev_shard
 
     def assert_fresh(what):
-        assert table.slab_view_fresh, what
-        assert table._dev_shard[0][2] == table.num_pages, what
-        assert all(a is b for a, b in zip(table._dev_shard[1:], views)), what
-        for host, view in ((table.keys, views[0]), (table.valid, views[1])):
-            whole = torch.zeros_like(view).view(-1, table.page_card)
+        assert table._dev_shard is view and not view.pending, what
+        for host, dev in ((table.keys, view.keys), (table.valid, view.valid)):
+            whole = torch.zeros_like(dev).view(-1, table.page_card)
             whole[: table.num_pages] = torch.from_numpy(
                 host[: table.num_pages])
-            assert torch.equal(view.view(-1, table.page_card), whole), what
+            assert torch.equal(dev.view(-1, table.page_card), whole), what
 
     def delete_rows(ids):
         _ref_delete_rows(j.table, ids)
@@ -313,7 +313,14 @@ def test_insert_drain_patches_only_its_pages(case):
     if case == "dead_staged":
         # only staged rows in range: the table and its view stay as they were
         assert je.delete(200.0, 400.0) == te.delete(200.0, 400.0) == 10
-        assert table.slab_view_fresh
+        assert not view.pending
+    if case == "range_delete":
+        # a range delete straight on the table (as the sync engine's is)
+        # hits slab 2 only and is still pending when the drain patches
+        key = float(table.keys[21, 3])
+        assert j.table.delete_where(key, key) == \
+            table.delete_where(key, key) == 1
+        assert view.slabs == {2}
     before = te.writer.stats.patch_bytes
     je.writer.drain(1)
     te.writer.drain(1)                         # the insert queue only
@@ -330,19 +337,20 @@ def test_insert_drain_patches_only_its_pages(case):
         _run_equal(je, te, jp, tp)
     if case == "grows_table":
         assert table.capacity_pages > loaded // 8 + 1
-    first = table.num_pages - 1
-    # another layout, no view, a table past the layout: nothing patched
-    assert table.patch_pages(first, 2, 20) is None
-    assert table.slab_view_fresh
+    # nothing pending, no view: nothing copied; a table past the layout
+    # drops the view
+    assert table.sync_slab_view() == 0
+    assert_fresh("nothing pending")
     table._dev_shard = None
-    assert table.patch_pages(first, 4, 10) is None
+    assert table.sync_slab_view() == 0
     _run_equal(je, te, jp, tp)                 # the next read rebuilds it
-    views = table._dev_shard[1:]
+    view = table._dev_shard
     assert_fresh("rebuilt")
     table.append(np.zeros(21 * table.page_card, np.float32))
     assert table.num_pages > 40
-    assert table.patch_pages(first, 4, 10) is None
-    assert not table.slab_view_fresh
+    assert table._dev_shard is None and table.sync_slab_view() == 0
+    with pytest.raises(ValueError, match="slab layout 4x10"):
+        t._slabs()
 
 
 # ---------------------------------------------------------------------------
