@@ -477,11 +477,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import kernels as K
+    from repro_torch.core import bitmap as bm
     from repro_torch.core import index as hix
     from repro_torch.core.partition import ShardedHippoIndex
     from repro_torch.core.predicate import (Predicate, intervals,
                                             to_bucket_bitmap,
-                                            to_bucket_bitmaps)
+                                            to_bucket_bitmaps,
+                                            upload_intervals)
     from repro_torch.kernels import _build
     from repro_torch.kernels.batch_filter import ops as bf_ops
     from repro_torch.kernels.bitmap_and import ops as ba_ops
@@ -528,7 +530,12 @@ def main() -> int:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     dev = sidx.device
+    # every conversion on the main path must be one launch of C's words entry
+    converts = []
+    convert = sidx._query_bitmaps
+    sidx._query_bitmaps = lambda b: converts.append(len(b)) or convert(b)
     serve, tickets = serve_compact(torch, QueryEngine, sidx, preds)
+    del sidx._query_bitmaps
     for top_k, row in serve.items():
         if (row["first_batch_fallbacks"] == 0
                 or row["bucket_after_first"] <= 64):
@@ -542,10 +549,14 @@ def main() -> int:
         "pages_per_shard": sidx.spec.pages_per_shard,
         "entries": sidx.num_entries, "build_s": build_s,
         "serve": {f"top_k={k}": v for k, v in serve.items()},
-        "launches": launches, "max_memory_allocated": peak}))
+        "launches": launches, "conversions": len(converts),
+        "max_memory_allocated": peak}))
     for name in MAIN_KERNELS:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
+    if not converts or launches["bucketize_rows_words"] != len(converts):
+        fail(f"{len(converts)} conversions on the main path launched C's "
+             f"words entry {launches['bucketize_rows_words']} times")
     brute_counts = check_brute_force(torch, table, dev, intervals, preds,
                                      tickets)
     print(f"main path checked: {len(preds)} counts x 2 engines and "
@@ -709,6 +720,43 @@ def main() -> int:
             ends, rows, RESOLUTION, True), 20),
         "graph_ms": graph_ms(torch, lambda: bk_ops.bucketize_rows(
             ends, rows, RESOLUTION, True), 20),
+        "bound_ms": vb, "bound_by": vhow}))
+    # C's words entry, predicate conversion's one launch: the batch's
+    # (S, Q, W) query bitmaps, against the composition it replaced (the rows
+    # entry, then a range mask packed a bit a pass, the empty predicates
+    # zeroed: ~110 launches) and against the plain version; then the whole
+    # conversion (``_query_bitmaps``) and its upload alone, looped, where the
+    # host's enqueue decides the time
+    wargs = (*upload_intervals(batch, dev), rows, RESOLUTION, True)
+    wq = len(batch)
+
+    def composed():
+        ids = bk_ops.bucketize_rows(torch.cat(wargs[:2]), rows, RESOLUTION,
+                                    True)
+        words = bm.range_mask(RESOLUTION, ids[:, :wq], ids[:, wq:])
+        return torch.where(wargs[2][None, :, None], words, 0)
+
+    fused = bk_ops.bucketize_rows_words(*wargs)
+    exact(torch, "bucketize rows words at the path shapes", fused,
+          bk_ops.bucketize_rows_words_ref(*wargs))
+    exact(torch, "bucketize rows words against the composition", fused,
+          composed())
+    exact(torch, "bucketize rows words against the batch's conversion",
+          fused, qb)
+    vb, vhow = bound_ms(9 * wq + rows.numel() * 4 + fused.numel() * 4, 0)
+    print("bucketize rows words at the path shapes: " + json.dumps({
+        "rows": rows.shape[0], "q": wq, "h": RESOLUTION,
+        "w": fused.shape[2],
+        "ms": time_ms(torch, lambda: bk_ops.bucketize_rows_words(*wargs),
+                      20),
+        "graph_ms": graph_ms(torch, lambda: bk_ops.bucketize_rows_words(
+            *wargs), 20),
+        "composed_ms": time_ms(torch, composed, 20),
+        "composed_graph_ms": graph_ms(torch, composed, 20),
+        "plain_ms": time_ms(torch, lambda: bk_ops.bucketize_rows_words_ref(
+            *wargs), 20),
+        "convert_ms": time_ms(torch, lambda: sidx._query_bitmaps(batch), 20),
+        "upload_ms": time_ms(torch, lambda: upload_intervals(batch, dev), 20),
         "bound_ms": vb, "bound_by": vhow}))
     # C at the inputs phase 2c gave it, at their own offsets within 16 B
     for (n, mod), (vals, pbounds, h) in sorted(probes.items()):

@@ -4,9 +4,9 @@
 Every predicate reduces to a closed interval [lo, hi] over the attribute, so
 its bucket bitmap is a contiguous run of set bits between the buckets of its
 two endpoints. A batch's endpoints reach the device in one copy from
-page-locked memory (``upload_intervals``), and are bucketed by one launch of
-the bucket-probe kernel's rows entry under every shard's bounds row at once:
-the conversion never waits on the device.
+page-locked memory (``upload_intervals``), and are bucketed and packed into
+query bitmaps by one launch of the bucket-probe kernel's words entry under
+every shard's bounds row at once: the conversion never waits on the device.
 """
 from __future__ import annotations
 
@@ -16,10 +16,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import bitmap as bm
 from repro_torch.core.histogram import Histogram
 from repro_torch.device import resolve_device
-from repro_torch.kernels.bucketize import bucketize_rows
+from repro_torch.kernels.bucketize import bucketize_rows_words
 
 _INF = float("inf")
 
@@ -132,17 +131,16 @@ def interval_bitmaps_sharded(bounds: torch.Tensor, los: torch.Tensor,
     """Intervals -> (S, Q, W) packed query bitmaps, row s under shard s's
     bounds ``bounds[s]`` of the stacked (S, H+1).
 
-    Both endpoints of every predicate are bucketed under every row in one
-    launch of the bucket probe's rows entry; a NaN endpoint lands in bucket
-    H-1, as the reference's ``searchsorted`` puts it. Each row is converted
-    under its own bounds, so shards on different bounds epochs (a drift
-    remap partly drained) need no grouping, and nothing is read back.
+    Both endpoints of every predicate are bucketed under every row, and
+    the words written, in one launch of the bucket probe's words entry (on
+    the CPU its plain version: the ids, a range mask, the empty predicates
+    zeroed); a NaN endpoint lands in bucket H-1, as the reference's
+    ``searchsorted`` puts it. Each row is converted under its own bounds, so
+    shards on different bounds epochs (a drift remap partly drained) need no
+    grouping, and nothing is read back.
     """
-    h = bounds.shape[-1] - 1
-    q = los.shape[0]
-    ids = bucketize_rows(torch.cat([los, his]), bounds.contiguous(), h)
-    words = bm.range_mask(h, ids[:, :q], ids[:, q:])
-    return torch.where(nonempty[None, :, None], words, 0)
+    return bucketize_rows_words(los, his, nonempty, bounds.contiguous(),
+                                bounds.shape[-1] - 1)
 
 
 def to_bucket_bitmap(pred: Predicate, hist: Histogram) -> torch.Tensor:

@@ -12,7 +12,8 @@
 // maintenance paths (every tuple of a shard, through a view that starts at
 // any 4 B boundary; inserted values) through `hippo_bucketize`, and
 // predicate conversion (the 2Q endpoints of a batch under every shard's
-// bounds row) through `hippo_bucketize_rows`, all with `nan_last` set.
+// bounds row, packed into the query bitmaps' words in the same launch)
+// through `hippo_bucketize_rows_words`, all with `nan_last` set.
 //
 // The rows entry probes one set of values under each of S bounds rows,
 // (S, H+1) -> ids (S, N): the grid's second axis runs over the rows, and
@@ -22,6 +23,16 @@
 // epochs in the middle of a drift remap need no grouping: a batch of 64
 // predicates under 4 shards is 4 x 128 lookups in one launch, with no
 // distinct-row search on the device and nothing read back by the host.
+//
+// The words entry (`hippo_bucketize_rows_words`) is the rows entry fused
+// with the packing that follows it in predicate conversion: it buckets each
+// interval's two endpoints with the same device function and writes the
+// (S, Q, W) int32 query bitmaps itself, each word in closed form. The plain
+// composition it replaces on the card (ids, a (S, Q, 32W) bool range mask
+// packed 32 passes of a bit, the empty predicates zeroed) took ~110 small
+// launches, each a few microseconds of device work behind its host dispatch;
+// at S = 4, Q = 64, H = 400 the entry moves ~20 KB, so one launch's latency
+// is all it costs.
 //
 // What bounds it on the H100: bytes. Each value is read once (4 B) and its
 // id written once (4 B); the H+1 bounds are a few KB. At the build's shape
@@ -276,6 +287,55 @@ cudaError_t launch_width(const float* values, int64_t n, const float* bounds,
                           nan_id, out, blocks, stream);
 }
 
+// The rows entry fused with the packing after it: the (rows, Q, W) int32
+// query bitmaps of Q closed intervals [los[i], his[i]] under each bounds row.
+// Block (x, s) stages row s of the bounds in shared memory, then takes the
+// intervals in chunks of kThreads, strided over gridDim.x: a thread buckets
+// one interval's two endpoints with the rows entry's own bucket_id, into
+// shared memory, and the block writes the chunk's W words a query, thread k
+// on word k of the chunk, so the stores are contiguous. Word w holds bits
+// [lo, hi] of [32w, 32w + 32) in closed form: a = clamp(lo - 32w, 0, 32),
+// b = clamp(min(hi + 1, resolution) - 32w, 0, 32), word (2^b - 2^a) mod 2^32
+// where b > a, else 0. An interval with nonempty[i] clear gets hi = -1, so
+// all its words are 0.
+__global__ void __launch_bounds__(kThreads)
+    bucketize_words_kernel(const float* __restrict__ los,
+                           const float* __restrict__ his,
+                           const uint8_t* __restrict__ nonempty, int q,
+                           const float* __restrict__ bounds, int nb,
+                           int resolution, int nan_id, int w,
+                           int* __restrict__ words) {
+  bounds += (int64_t)blockIdx.y * nb;     // this block's row
+  words += (int64_t)blockIdx.y * q * w;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* lo_id = reinterpret_cast<int*>(smem);
+  int* hi_id = lo_id + kThreads;
+  float* sb = reinterpret_cast<float*>(hi_id + kThreads);
+  for (int j = threadIdx.x; j < nb; j += kThreads) sb[j] = bounds[j];
+  __syncthreads();
+  const Probe pr{sb, nullptr, nb, top_step(nb), 0.f, 0.f};
+  for (int first = blockIdx.x * kThreads; first < q;
+       first += gridDim.x * kThreads) {
+    const int n = min(kThreads, q - first);
+    if (threadIdx.x < n) {
+      const int i = first + threadIdx.x;
+      lo_id[threadIdx.x] = bucket_id<false>(pr, los[i], resolution, nan_id);
+      hi_id[threadIdx.x] =
+          nonempty[i] ? bucket_id<false>(pr, his[i], resolution, nan_id) : -1;
+    }
+    __syncthreads();
+    int* out = words + (int64_t)first * w;
+    for (int k = threadIdx.x; k < n * w; k += kThreads) {
+      const int i = k / w;
+      const int bit0 = (k - i * w) * 32;
+      const int a = min(max(lo_id[i] - bit0, 0), 32);
+      const int b = min(max(min(hi_id[i] + 1, resolution) - bit0, 0), 32);
+      out[k] = b > a ? (int)(uint32_t)((1ull << b) - (1ull << a)) : 0;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 // Ids of values (N,) under each row of bounds (rows, nb), into out (rows, N).
@@ -312,6 +372,40 @@ extern "C" int hippo_bucketize(const float* values, int64_t n,
                                int nan_last, int* out, cudaStream_t stream) {
   return hippo_bucketize_rows(values, n, bounds, 1, nb, resolution, nan_last,
                               out, stream);
+}
+
+// Query bitmaps of the intervals [los, his] (Q,) with nonempty (Q,) under
+// each row of bounds (rows, nb), into words (rows, Q, ceil(resolution / 32)).
+extern "C" int hippo_bucketize_rows_words(const float* los, const float* his,
+                                          const uint8_t* nonempty, int q,
+                                          const float* bounds, int rows,
+                                          int nb, int resolution,
+                                          int nan_last, int* words,
+                                          cudaStream_t stream) {
+  if (q <= 0 || nb <= 0 || rows <= 0) return (int)cudaGetLastError();
+  if (rows > 65535) return (int)cudaErrorInvalidValue;   // grid's y axis
+  const int nan_id = nan_last ? resolution - 1 : 0;
+  const int w = (resolution + 31) / 32;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  // enough blocks of kThreads intervals to cover Q, no more than stay
+  // resident beside the other rows' blocks
+  int per_row = sms * (2048 / kThreads) / rows;
+  if (per_row < 1) per_row = 1;
+  int blocks = (q + kThreads - 1) / kThreads;
+  if (blocks > per_row) blocks = per_row;
+  const size_t smem = (size_t)nb * 4 + 2 * kThreads * 4;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(bucketize_words_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess) {
+    return (int)err;
+  }
+  bucketize_words_kernel<<<dim3((unsigned)blocks, (unsigned)rows), kThreads,
+                           smem, stream>>>(los, his, nonempty, q, bounds, nb,
+                                           resolution, nan_id, w, words);
+  return (int)cudaGetLastError();
 }
 
 // Error text for the codes the C entry points of every csrc file return.

@@ -10,6 +10,8 @@ Each kernel directory keeps the reference's three-file split:
 
 Kernels, by the name their launches are counted under:
   bucketize              — histogram probe (build and predicate conversion)
+  bucketize_rows_words   — its words entry alone (predicate conversion),
+                           counted under ``bucketize`` too
   batch_filter           — sharded joint-bucket filter, live mask fused
                            (compact path, fused dense path, routing test)
   batch_filter_unsharded — the same filter without a shard axis
@@ -43,9 +45,11 @@ KERNELS = {
 
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last ``reset_launch_counts``."""
-    return {name: k.launches for name, k in KERNELS.items()}
+    return {**{name: k.launches for name, k in KERNELS.items()},
+            "bucketize_rows_words": _bucketize.launch_rows_words.launches}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+    _bucketize.launch_rows_words.launches = 0

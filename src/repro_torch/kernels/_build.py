@@ -44,6 +44,10 @@ SIGNATURES = {
     # values, n, bounds, rows, num_bounds, resolution, nan_last, out, stream
     "hippo_bucketize_rows": [_PTR, _I64, _PTR, _I32, _I32, _I32, _I32, _PTR,
                              _PTR],
+    # los, his, nonempty, Q, bounds, rows, num_bounds, resolution, nan_last,
+    # words, stream
+    "hippo_bucketize_rows_words": [_PTR, _PTR, _PTR, _I32, _PTR, _I32, _I32,
+                                   _I32, _I32, _PTR, _PTR],
     # queries, entries, live, S, Q, E, W, out, stream
     "hippo_batch_filter_sharded": [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32,
                                    _PTR, _PTR],
@@ -181,9 +185,9 @@ class Kernel:
     ``launches`` counts the launches made through ``launch``; nothing else
     touches it, so a run can show that its path went through the kernel.
     ``source`` and ``replaces`` name the CUDA file and the TPU kernel
-    (file:line) it replaces. A kernel with a second entry point of the same
-    file (the bucket probe's rows entry) launches it through ``launch``
-    too, under the same counter.
+    (file:line) it replaces. A kernel with more entry points in the same
+    file (the bucket probe's rows and words entries) launches them through
+    ``launch`` too, under the same counter.
     """
 
     def __init__(self, symbol: str, source: str, replaces: str):

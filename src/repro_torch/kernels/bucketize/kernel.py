@@ -1,5 +1,6 @@
 """ctypes binding of the CUDA bucket probe (``csrc/bucketize.cu``) and its
-launch counter ``KERNEL``, which counts both entry points."""
+launch counter ``KERNEL``, which counts every entry point;
+``launch_rows_words.launches`` counts the words entry's launches alone."""
 from __future__ import annotations
 
 import torch
@@ -26,3 +27,21 @@ def launch_rows(values: torch.Tensor, bounds: torch.Tensor, resolution: int,
     KERNEL.launch(values.data_ptr(), values.numel(), bounds.data_ptr(),
                   bounds.shape[0], bounds.shape[1], resolution, int(nan_last),
                   out.data_ptr(), on=values, entry="hippo_bucketize_rows")
+
+
+def launch_rows_words(los: torch.Tensor, his: torch.Tensor,
+                      nonempty: torch.Tensor, bounds: torch.Tensor,
+                      resolution: int, nan_last: bool, out: torch.Tensor
+                      ) -> None:
+    """los, his (Q,) f32, nonempty (Q,) bool, bounds (S, H+1) f32, out
+    (S, Q, ceil(resolution / 32)) int32, all contiguous on one CUDA device:
+    out[s, q] is the query bitmap of [los[q], his[q]] under row s of
+    bounds, zero where nonempty[q] is False."""
+    KERNEL.launch(los.data_ptr(), his.data_ptr(), nonempty.data_ptr(),
+                  los.numel(), bounds.data_ptr(), bounds.shape[0],
+                  bounds.shape[1], resolution, int(nan_last), out.data_ptr(),
+                  on=los, entry="hippo_bucketize_rows_words")
+    launch_rows_words.launches += 1
+
+
+launch_rows_words.launches = 0

@@ -6,11 +6,14 @@ in chunks of values so the (chunk, H+1) compare stays small; with
 0. It is the
 CPU path of ``ops.bucketize_values`` and the CUDA kernel's oracle;
 ``bucketize_rows_ref`` applies it under each row of stacked bounds, the CPU
-path of ``ops.bucketize_rows``.
+path of ``ops.bucketize_rows``; ``bucketize_rows_words_ref`` packs those ids
+into query bitmaps, the CPU path of ``ops.bucketize_rows_words``.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import bitmap as bm
 
 _CHUNK_ELEMS = 1 << 24
 
@@ -40,3 +43,17 @@ def bucketize_rows_ref(values: torch.Tensor, bounds: torch.Tensor,
     for s in range(bounds.shape[0]):
         out[s] = bucketize_ref(values, bounds[s], resolution, nan_last)
     return out
+
+
+def bucketize_rows_words_ref(los: torch.Tensor, his: torch.Tensor,
+                             nonempty: torch.Tensor, bounds: torch.Tensor,
+                             resolution: int, nan_last: bool = True
+                             ) -> torch.Tensor:
+    """los, his (Q,) f32, nonempty (Q,) bool; bounds (S, H+1) f32 ->
+    (S, Q, ceil(resolution / 32)) int32 query bitmaps: bits [id(lo), id(hi)]
+    under each row, all zero where ``nonempty`` is False."""
+    q = los.shape[0]
+    ids = bucketize_rows_ref(torch.cat([los, his]), bounds, resolution,
+                             nan_last)
+    words = bm.range_mask(resolution, ids[:, :q], ids[:, q:])
+    return torch.where(nonempty[None, :, None], words, 0)

@@ -572,6 +572,147 @@ def test_back_to_back_batches_keep_their_own_counts():
             assert _same_bits(gq, wq)
 
 
+# The words entry (predicate conversion's launch): the (S, Q, W) query
+# bitmaps of Q intervals whose endpoints are NaN, +-0, +-inf, +-3.4e38, on
+# and beside the bounds, lo > hi among them, a tenth marked empty, under S
+# bounds rows equal or distinct; at one word (H = 32), a partial last word
+# (H = 100) and H = 400; Q of none, one, a batch, one block's 256 and past
+# it, and at H = 400 past every resident block of a row (the strided loop);
+# against the plain path bit for bit, one launch each.
+@needs_cuda
+@pytest.mark.parametrize("rows", ["equal", "distinct"])
+@pytest.mark.parametrize("nan_last", [False, True])
+@pytest.mark.parametrize("s", [1, 4])
+def test_bucketize_rows_words_kernel_equals_plain(s, nan_last, rows):
+    kinds = ["increasing", "tied", "equal", "infinite ends", "signed zeros"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    strided = sms * 8 // s * 256 + 1
+    bit31 = False
+    for h in (32, 100, 400):
+        rng = np.random.default_rng(h + s)
+        b = np.stack([_bounds(kinds[(r + h) % 5] if rows == "distinct"
+                              else "increasing", rng, h) for r in range(s)])
+        if rows == "equal":
+            b = np.stack([b[0]] * s)
+        pool = np.concatenate([EDGE_VALUES, b.ravel(), b.ravel() + 0.005])
+        bounds = torch.from_numpy(b)
+        for q in (0, 1, 64, 256, 257, 1000) + ((strided,) if h == 400
+                                               else ()):
+            los = rng.choice(pool, q).astype(np.float32)
+            his = np.where(rng.random(q) < 0.5,
+                           los + rng.choice([0.0, 1.0, 30.0], q),
+                           rng.choice(pool, q)).astype(np.float32)
+            args = [torch.from_numpy(x) for x in
+                    (los, his, rng.random(q) < 0.9)]
+            want = bk_ops.bucketize_rows_words_ref(*args, bounds, h, nan_last)
+            before = (bk_kernel.KERNEL.launches,
+                      bk_kernel.launch_rows_words.launches)
+            got = bk_ops.bucketize_rows_words(*(a.cuda() for a in args),
+                                              bounds.cuda(), h, nan_last)
+            torch.cuda.synchronize()
+            n = int(q > 0)
+            assert (bk_kernel.KERNEL.launches,
+                    bk_kernel.launch_rows_words.launches) == (
+                        before[0] + n, before[1] + n)
+            assert got.shape == (s, q, (h + 31) // 32)
+            assert torch.equal(got.cpu(), want), (h, q)
+            bit31 |= bool((want < 0).any())
+    assert bit31
+
+
+@needs_cuda
+def test_bucketize_rows_words_refuses_bounds_past_shared_memory():
+    """A bounds row past what one block's shared memory holds is refused
+    before any launch; the largest row that fits (above the 48 KB a block
+    has without asking) runs and equals the plain path."""
+    nb = bk_ops._MAX_BOUNDS + 1
+    bounds = torch.arange(nb, dtype=torch.float32, device="cuda")[None]
+    los = torch.tensor([-1.0, 5.5, 100.0, 9000.0, 31.0], device="cuda")
+    his = los + torch.tensor([0.0, 300.0, 40.0, 5000.0, 1.0], device="cuda")
+    nonempty = torch.ones(5, dtype=torch.bool, device="cuda")
+    before = bk_kernel.KERNEL.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        bk_ops.bucketize_rows_words(los, his, nonempty, bounds, nb - 1)
+    assert bk_kernel.KERNEL.launches == before
+    fits = bounds[:, :-1].contiguous()
+    got = bk_ops.bucketize_rows_words(los, his, nonempty, fits, nb - 2)
+    want = bk_ops.bucketize_rows_words_ref(los.cpu(), his.cpu(),
+                                           nonempty.cpu(), fits.cpu(), nb - 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@needs_cuda
+def test_query_bitmaps_is_one_launch_of_the_words_entry():
+    """One ``_query_bitmaps`` call (a batch's ``hippo.index.convert``) on a
+    card index adds 1 to the words entry's count and 1 to the bucket
+    probe's, and its device trace holds one kernel and one host-to-device
+    copy; the words equal the CPU's."""
+    card, cpu = _conversion_pair()
+    preds = _conversion_batch(4)
+    card._query_bitmaps(preds)          # builds the library, pins a block
+    torch.cuda.synchronize()
+    before = (bk_kernel.KERNEL.launches, bk_kernel.launch_rows_words.launches)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = card._query_bitmaps(preds)
+        torch.cuda.synchronize()
+    assert (bk_kernel.KERNEL.launches,
+            bk_kernel.launch_rows_words.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    dev = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [n for n in dev if n.startswith("Memcpy")]
+    kernels = [n for n in dev if not n.startswith("Memcpy")]
+    assert len(copies) == 1 and "HtoD" in copies[0], dev
+    assert len(kernels) == 1 and "bucketize_words_kernel" in kernels[0], dev
+    for g, w in zip(got, cpu._query_bitmaps(preds)):
+        assert _same_bits(g, w)
+
+
+@needs_cuda
+def test_engines_convert_on_card_through_the_words_entry(monkeypatch):
+    """On the card no engine packs bits with ``range_mask`` or
+    ``from_bool``; on the compact engine (the main path, with its widened
+    slabs and fallbacks) the words entry's count equals the
+    ``_query_bitmaps`` calls; every answer equals the CPU's."""
+    from repro_torch.core import bitmap as bm
+    card, cpu = _conversion_pair()      # the build packs with from_bool
+    for name in ("range_mask", "from_bool"):
+        def guarded(*a, _fn=getattr(bm, name), _name=name, **k):
+            assert not any(isinstance(x, torch.Tensor) and x.is_cuda
+                           for x in a), f"{_name} on a card tensor"
+            return _fn(*a, **k)
+        monkeypatch.setattr(bm, name, guarded)
+    calls = []
+    real = card._query_bitmaps
+
+    def counted(preds):
+        calls.append(len(preds))
+        return real(preds)
+    monkeypatch.setattr(card, "_query_bitmaps", counted)
+    preds = [p for seed in range(5, 9) for p in _conversion_batch(seed)]
+    out = {}
+    for idx in (card, cpu):
+        runs = []
+        for kw in ({"top_k": 8, "compact_bucket": 4}, {"mode": "dense"},
+                   {"mode": "dense", "sharded": False}):
+            before = bk_kernel.launch_rows_words.launches
+            del calls[:]
+            eng = QueryEngine(idx, batch=32, **kw)
+            tickets = [eng.submit(p) for p in preds]
+            eng.drain()
+            if idx is card and "mode" not in kw:
+                assert len(calls) >= len(preds) // 32
+                assert (bk_kernel.launch_rows_words.launches - before
+                        == len(calls))
+            runs.append([(t.count, t.pages_inspected, t.entries_matched)
+                         for t in tickets])
+        out[idx.device.type] = runs
+    assert out["cuda"] == out["cpu"]
+
+
 def _maintenance_stream(idx, rng):
     """Eager inserts, a batch across the partial page and new pages, a
     delete and its vacuum; returns what a caller can observe."""

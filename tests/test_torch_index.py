@@ -121,29 +121,42 @@ def _bounds_rows(kind: str, h: int = 64) -> np.ndarray:
     return np.stack(rows)
 
 
-def _conversion_preds(kind: str) -> list:
-    nan = float("nan")
-    pairs = {"q0": [], "q1": [(100.0, 900.0)],
-             "empty": [(5.0, 1.0), (3.0, 2.0), (1e9, -1e9)],
-             "edges": [(-np.inf, np.inf), (-np.inf, 0.0), (700.0, np.inf),
-                       (nan, 10.0), (10.0, nan), (nan, nan), (5.0, 1.0),
-                       (-1e9, -1e8), (1e8, 1e9), (12.5, 12.5),
-                       (-3.4e38, 3.4e38), (0.0, 2000.0)]}[kind]
+def _conversion_preds(kind: str, bounds: np.ndarray) -> list:
+    """Predicates of one kind; ``bit31`` and the ``q64``/``q256`` batches
+    are drawn against the (S, H+1) ``bounds``."""
+    nan, inf = float("nan"), float("inf")
+    h = bounds.shape[1] - 1
+
+    def mid(b):                # a key inside bucket b of row 0
+        return float((bounds[0, b] + bounds[0, b + 1]) / 2)
+
+    if kind == "bit31":        # runs that start, end or sit on bit 31
+        pairs = [p for b in range(31, h, 32) for p in
+                 [(mid(b), mid(b)), (mid(b - 1), mid(b)), (mid(0), mid(b)),
+                  (mid(b), mid(min(b + 1, h - 1))), (mid(b), inf)]]
+    elif kind in ("q64", "q256"):
+        rng = np.random.default_rng(int(kind[1:]) + h)
+        q = int(kind[1:])
+        lo = rng.uniform(bounds.min() - 50, bounds.max() + 50, q)
+        hi = lo + rng.choice([0.0, 1.0, 30.0, 365.0, -3.0], q)
+        lo[0], hi[1], lo[2], hi[3] = nan, nan, -inf, inf
+        lo[4], hi[4], lo[5], hi[5] = -inf, inf, nan, nan
+        pairs = list(zip(lo.tolist(), hi.tolist()))
+    else:
+        pairs = {"q0": [], "q1": [(100.0, 900.0)],
+                 "empty": [(5.0, 1.0), (3.0, 2.0), (1e9, -1e9)],
+                 "edges": [(-np.inf, np.inf), (-np.inf, 0.0), (700.0, np.inf),
+                           (nan, 10.0), (10.0, nan), (nan, nan), (5.0, 1.0),
+                           (-1e9, -1e8), (1e8, 1e9), (12.5, 12.5),
+                           (-3.4e38, 3.4e38), (0.0, 2000.0)]}[kind]
     return [TPred.between(lo, hi) for lo, hi in pairs]
 
 
-@pytest.mark.parametrize("preds_kind", ["edges", "empty", "q0", "q1"])
-@pytest.mark.parametrize("rows_kind", ["equal", "distinct", "two epochs"])
-def test_sharded_conversion_equals_each_rows_own(rows_kind, preds_kind,
-                                                 monkeypatch):
-    """Row s of the sharded conversion is the batch converted under
-    ``bounds[s]`` alone, and the reference's per-shard conversion, bit for
-    bit, whether the shards share one bounds row or not; the conversion
-    calls no ``torch.unique``."""
+def _check_sharded_conversion(rows_kind, preds_kind, h, monkeypatch):
     def no_unique(*a, **k):
         raise AssertionError("the conversion called torch.unique")
-    bounds = _bounds_rows(rows_kind)
-    preds = _conversion_preds(preds_kind)
+    bounds = _bounds_rows(rows_kind, h)
+    preds = _conversion_preds(preds_kind, bounds)
     tb = torch.from_numpy(bounds)
     los, his, nonempty = tpredicate.upload_intervals(preds, "cpu")
     monkeypatch.setattr(torch, "unique", no_unique)
@@ -151,11 +164,39 @@ def test_sharded_conversion_equals_each_rows_own(rows_kind, preds_kind,
     each = torch.stack([tpredicate.interval_bitmaps(tb[s], los, his, nonempty)
                         for s in range(tb.shape[0])])
     assert got.dtype == torch.int32 and torch.equal(got, each)
+    assert got.shape == (4, len(preds), (h + 31) // 32)
     want = jpredicate.interval_bitmaps_sharded(
         jnp.asarray(bounds), jnp.asarray(los.numpy()),
         jnp.asarray(his.numpy()), jnp.asarray(nonempty.numpy()))
     _assert_equal(want, got, "qbms")
     assert np.array_equal(nonempty.numpy(), [not p.empty for p in preds])
+    if preds_kind == "bit31":
+        assert bool((got < 0).any())          # bit 31 is set somewhere
+
+
+@pytest.mark.parametrize("preds_kind", ["edges", "empty", "q0", "q1",
+                                        "bit31", "q64", "q256"])
+@pytest.mark.parametrize("rows_kind", ["equal", "distinct", "two epochs"])
+def test_sharded_conversion_equals_each_rows_own(rows_kind, preds_kind,
+                                                 monkeypatch):
+    """Row s of the sharded conversion is the batch converted under
+    ``bounds[s]`` alone, and the reference's per-shard conversion, bit for
+    bit, whether the shards share one bounds row or not; the conversion
+    calls no ``torch.unique``."""
+    _check_sharded_conversion(rows_kind, preds_kind, 64, monkeypatch)
+
+
+@pytest.mark.parametrize("preds_kind", ["edges", "empty", "q0", "q1",
+                                        "bit31", "q64", "q256"])
+@pytest.mark.parametrize("rows_kind", ["equal", "distinct", "two epochs"])
+@pytest.mark.parametrize("h", [32, 100, 400])
+def test_sharded_conversion_at_each_width_equals_reference(h, rows_kind,
+                                                           preds_kind,
+                                                           monkeypatch):
+    """The same at one word (H = 32), at a partial last word (H = 100: 4
+    words, 4 bits in the last) and at the benchmark's H = 400 (13 words,
+    16 bits in the last)."""
+    _check_sharded_conversion(rows_kind, preds_kind, h, monkeypatch)
 
 
 @pytest.mark.parametrize("method", ["search_compact_batch", "search_batch",

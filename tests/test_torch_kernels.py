@@ -19,7 +19,8 @@ from repro.kernels.batch_filter.ref import batch_filter_sharded_ref as jnp_bf
 from repro.kernels.bucketize.ops import bucketize_values as pallas_bk
 from repro.kernels.compact_inspect.ops import compact_inspect as pallas_ci
 from repro_torch.kernels.batch_filter import batch_filter_sharded
-from repro_torch.kernels.bucketize import bucketize_values
+from repro_torch.kernels.bucketize import (bucketize_rows_words,
+                                           bucketize_values)
 from repro_torch.kernels.compact_inspect import compact_inspect
 
 
@@ -157,3 +158,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                         torch.zeros((1, 1), dtype=torch.int32),
                         torch.zeros((1, 1, 1), dtype=torch.bool),
                         torch.zeros(1), torch.zeros(1))
+
+
+@pytest.mark.parametrize("bad", ["his shape", "his dtype", "nonempty dtype",
+                                 "nonempty shape"])
+def test_bucketize_rows_words_refuses_mismatched_intervals(bad):
+    q = 5
+    args = {"los": torch.zeros(q), "his": torch.ones(q),
+            "nonempty": torch.ones(q, dtype=torch.bool)}
+    args.update({"his shape": {"his": torch.ones(q + 1)},
+                 "his dtype": {"his": torch.ones(q, dtype=torch.float64)},
+                 "nonempty dtype": {"nonempty": torch.ones(q)},
+                 "nonempty shape": {"nonempty": torch.ones(
+                     q - 1, dtype=torch.bool)}}[bad])
+    bounds = torch.arange(9, dtype=torch.float32)[None].repeat(2, 1)
+    with pytest.raises((TypeError, ValueError)):
+        bucketize_rows_words(args["los"], args["his"], args["nonempty"],
+                             bounds, 8)
+    got = bucketize_rows_words(torch.zeros(q), torch.ones(q),
+                               torch.ones(q, dtype=torch.bool), bounds, 8)
+    assert got.shape == (2, q, 1) and got.dtype == torch.int32
