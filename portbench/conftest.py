@@ -3,12 +3,21 @@ on the path, a checkout that adds test cells for the harness's write path,
 and a helper that cuts a cell to a size the CPU runs in seconds (the same
 code paths; the port's kernels take their plain versions on CPU tensors).
 
-No cell of ``BENCHMARK.json`` writes yet (PERF.md, Open questions), so the
-day-sorted layout with its refresh stream ``streams/daily_retention.py``
-(appends of the newest day, a retention delete of the oldest) is kept proven
-here: the test checkout adds ``daily.refresh`` (an open loop beside the
-refresh stream) and ``daily.scan`` (a closed loop on the sorted column, half
-the queries recent) to a copy of the benchmark."""
+``BENCHMARK.json``'s one writing cell, ``dbgen.refresh``, runs TPC-H's
+refresh functions on the dbgen layout; the day-sorted layout with its
+refresh stream ``streams/daily_retention.py`` (appends of the newest day, a
+retention delete of the oldest) has no cell there (PERF.md, Open questions)
+and is kept proven here: the test checkout adds ``daily.refresh`` (an open
+loop beside the refresh stream) and ``daily.scan`` (a closed loop on the
+sorted column, half the queries recent) to a copy of the benchmark.
+
+It also adds configurations with an ``"engine"`` object
+(``pb_harness.engine_kwargs``): ``daily.durable`` (``daily.refresh`` on a
+durable engine: a journal record fsynced per write and range delete, a
+delta committed per drain, judged again after a recovery),
+``daily.journal`` (the same with no commit after the first full snapshot,
+so recovery replays every record from the journal) and ``dbgen.dense``
+(``dbgen.scan`` on the routed dense engine)."""
 import json
 import shutil
 import sys
@@ -31,11 +40,22 @@ TEST_MIXES = {
                     "writes": None},
 }
 TEST_CELLS = [("daily.refresh", "refresh"), ("daily.scan", "recent_scan")]
+# (cell, configuration, base configuration, its "engine" object, mix)
+ENGINE_CELLS = [
+    ("daily.durable", "test_daily_durable", "test_daily",
+     {"storage_dir": True, "wal_sync": True}, "refresh"),
+    ("daily.journal", "test_daily_journal", "test_daily",
+     {"storage_dir": True, "wal_sync": True, "snapshot_on_drain": False},
+     "refresh"),
+    ("dbgen.dense", "test_dbgen_dense", "tpch_sf10_shipdate_dbgen",
+     {"mode": "dense"}, "scan"),
+]
 
 
 def _test_checkout(root: Path) -> Path:
     """A copy of ``portbench/`` and ``BENCHMARK.json`` under ``root`` with
-    the day-sorted test configuration, its two mixes and two cells."""
+    the day-sorted test configuration, its two mixes and two cells, and the
+    cells of ``ENGINE_CELLS``."""
     import pb_registry
     shutil.copytree(pb_registry.ROOT / "portbench", root / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -55,9 +75,22 @@ def _test_checkout(root: Path) -> Path:
     for name, mix in TEST_CELLS:
         bench["workloads"].append({"name": name, "config": "test_daily",
                                    "traffic": mix, "chips": 1, "why": "test"})
+    files = {c["name"]: c["file"] for c in bench["configs"]}
+    for name, config, base_name, engine, mix in ENGINE_CELLS:
+        cfg = json.loads((root / files[base_name]).read_text())
+        cfg.update(name=config, engine=engine)
+        (root / "portbench" / "configs" / f"{config}.json").write_text(
+            json.dumps(cfg))
+        bench["configs"].append(dict(base, name=config,
+                                     file=f"portbench/configs/{config}.json"))
+        bench["workloads"].append({"name": name, "config": config,
+                                   "traffic": mix, "chips": 1, "why": "test"})
     for m in bench["end_to_end"]:
         if m["name"] == "read_qps":
-            m["workloads"] += [name for name, _ in TEST_CELLS]
+            m["workloads"] += [name for name, _ in TEST_CELLS] \
+                + [c[0] for c in ENGINE_CELLS]
+        if m["name"] == "refresh_ack_ms":
+            m["workloads"] += [c[0] for c in ENGINE_CELLS if c[4] == "refresh"]
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
 

@@ -16,15 +16,26 @@ call.
 Every answer the engine gives, in the warm-up, the window and the drain
 after it, is compared with ``pb_reference`` once the program's state is
 freed.
+
+A configuration's ``"engine"`` object adds ``QueryEngine`` keyword
+arguments to the ones the harness sets (``engine_kwargs``). With
+``"storage_dir": true`` the run gets a directory of its own under
+``.portbench_cache/storage/`` (removed when the run ends, on failure too),
+logs a ``storage:`` line, and after the drain closes the engine without a
+save, recovers a new one from the directory and judges it at every
+acknowledged operation: the check ``lost_on_recovery``.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import subprocess
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -40,6 +51,7 @@ WARMUP_BATCHES = 8       # read batches before any write: the slab widens
 WARMUP_ROWS = 512        # appends in the warm-up: every drain kind runs
 DRAIN_WAIT_S = 60.0      # how long answers due in the window are awaited
 TRACE_S = 3.0            # a traced run traces the window's first seconds
+HARNESS_SETS = ("batch", "top_k", "drain_policy", "drain_units")
 
 
 def clock() -> float:
@@ -66,6 +78,121 @@ class Run:
     index_bytes: int = 0
     live_tuples: int = 0
     page_card: int = 0
+
+
+def engine_kwargs(config: dict, mix: dict, storage_dir=None) -> dict:
+    """The ``QueryEngine`` keyword arguments of a cell: the four the harness
+    sets from the configuration and the mix, and the configuration's
+    ``"engine"`` object, whose ``"storage_dir": true`` becomes
+    ``storage_dir`` (the harness owns the path). Refuses a key the harness
+    sets, ``writer``, a ``storage_dir`` other than true, and
+    ``background_save`` beside it: ``QueryEngine.close`` flushes the
+    persister, so the recovery check would see commits a crash loses."""
+    kw = {"batch": int(config["batch"]),
+          "top_k": int(mix["reads"].get("top_k", 0)),
+          "drain_policy": config["drain_policy"],
+          "drain_units": int(config["drain_units"])}
+    extra = dict(config.get("engine") or {})
+    for key in extra:
+        if key in HARNESS_SETS or key == "writer":
+            raise ValueError(f"{config['name']}: engine key {key!r} is the "
+                             f"harness's to set")
+    if "storage_dir" in extra:
+        if extra["storage_dir"] is not True:
+            raise ValueError(f"{config['name']}: engine key 'storage_dir' "
+                             f"must be true (the harness gives the path), "
+                             f"got {extra['storage_dir']!r}")
+        if storage_dir is None:
+            raise ValueError(f"{config['name']}: engine key 'storage_dir' "
+                             f"needs the run's storage directory")
+        if extra.get("background_save"):
+            raise ValueError(f"{config['name']}: engine key "
+                             f"'background_save' is refused with "
+                             f"'storage_dir': closing the engine flushes "
+                             f"the persister, which a crash does not")
+        extra["storage_dir"] = storage_dir
+    kw.update(extra)
+    return kw
+
+
+def _new_storage_dir(cell: Cell, seed: int) -> Path:
+    """``.portbench_cache/storage/<cell>.<seed>.<pid>/`` in the checkout,
+    fresh, after removing what runs whose process has ended left there."""
+    base = cell.root / ".portbench_cache" / "storage"
+    base.mkdir(parents=True, exist_ok=True)
+    for old in base.iterdir():
+        pid = old.name.rsplit(".", 1)[-1]
+        if pid.isdigit() and not Path(f"/proc/{pid}").exists():
+            shutil.rmtree(old, ignore_errors=True)
+    path = base / f"{cell.name}.{seed}.{os.getpid()}"
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir()
+    return path
+
+
+def _fs_type(path: Path) -> str:
+    """The filesystem type of the mount that holds ``path``
+    (``/proc/self/mounts``, the longest mount point above it)."""
+    path = str(path.resolve())
+    best, kind = "", "unknown"
+    try:
+        lines = Path("/proc/self/mounts").read_text().splitlines()
+    except OSError:
+        return kind
+    for line in lines:
+        f = line.split()
+        if len(f) < 3:
+            continue
+        mnt = f[1].replace("\\040", " ")
+        if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                and len(mnt) > len(best):
+            best, kind = mnt, f[2]
+    return f"{kind} at {best}" if best else kind
+
+
+def _io_written() -> int | None:
+    """The bytes this process has passed to write calls, ``wchar`` of
+    ``/proc/self/io`` (its ``write_bytes`` reads 0 on a 9p root)."""
+    try:
+        lines = Path("/proc/self/io").read_text().splitlines()
+    except OSError:
+        return None
+    for line in lines:
+        k, _, v = line.partition(":")
+        if k == "wchar":
+            return int(v)
+    return None
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _recover_and_probe(storage: Path, dev, kwargs: dict, days: int, sync
+                       ) -> tuple[float, np.ndarray, np.ndarray, list]:
+    """``QueryEngine.recover`` of the run's directory, timed, then one query
+    a day of ``[0, days)`` and one over all of them; returns the seconds,
+    the probe's bounds and its counts (None where none came)."""
+    from repro_torch.core.predicate import Predicate
+    from repro_torch.runtime.engine import QueryEngine
+    kwargs = {k: v for k, v in kwargs.items() if k != "storage_dir"}
+    t = clock()
+    eng = QueryEngine.recover(storage, device=dev, snapshot_on_recover=False,
+                              **kwargs)
+    sync()
+    recover_s = clock() - t
+    lo = np.concatenate([np.arange(days), [0]]).astype(np.int64)
+    hi = np.concatenate([np.arange(days), [days - 1]]).astype(np.int64)
+    tickets = [eng.submit(Predicate.between(float(a), float(b)))
+               for a, b in zip(lo.tolist(), hi.tolist())]
+    try:
+        eng.drain()
+    finally:
+        eng.close()
+    counts = [t.count if t.done else None for t in tickets]
+    del eng, tickets
+    gc.collect()
+    return recover_s, lo, hi, counts
 
 
 def _stats(obj) -> dict:
@@ -407,15 +534,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     sync()
     parts["upload_and_build_s"] = clock() - t
     top_k = int(mix["reads"].get("top_k", 0))
-    eng = QueryEngine(sidx, batch=int(cfg["batch"]), top_k=top_k,
-                      drain_policy=cfg["drain_policy"],
-                      drain_units=int(cfg["drain_units"]))
+    storage = _new_storage_dir(cell, seed) \
+        if (cfg.get("engine") or {}).get("storage_dir") is True else None
     tracer = Tracer()
-    recorder = _Recorder(hix, tracer) if trace else None
-    stream = load_stream(cfg, seed, data, cell.root)
-    drv = Driver(eng, stream, pb_traffic.Queries(mix, seed), top_k, tracer)
-    t = clock()
+    recorder = probe = None
     try:
+        kwargs = engine_kwargs(cfg, mix, storage)
+        eng = QueryEngine(sidx, **kwargs)
+        recorder = _Recorder(hix, tracer) if trace else None
+        stream = load_stream(cfg, seed, data, cell.root)
+        drv = Driver(eng, stream, pb_traffic.Queries(mix, seed), top_k,
+                     tracer)
+        t = clock()
         _warm_up(drv, has_writes, int(cfg["batch"]))
         sync()
         parts["warm_up_s"] = clock() - t
@@ -433,9 +563,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                     + f"; setup_s {setup_s:.3f}")
             before = _engine_stats(eng)
             on_trace = {}
+            io = _io_written() if storage is not None else None
             rec = _window(drv, seconds, mix, read_due, read_lo, read_hi,
                           op_due, tracer if trace and not sweep else None,
                           on_trace)
+            if io is not None:
+                rec["written"] = _io_written() - io
             if "after" in on_trace:
                 before, after = on_trace["before"], on_trace["after"]
             else:
@@ -450,23 +583,43 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             windows.append(rec)
         _drain(drv, DRAIN_WAIT_S)
         sync()
+        rec = windows[-1]
+        peak = torch.cuda.max_memory_allocated() if on_gpu else 0
+        st = sidx.state.shards
+        live = st.slot_live.sum(dim=1).cpu().tolist()
+        index_bytes = pb_bytes.index_nbytes(
+            st.num_entries.cpu().tolist(), live, sidx.cfg.words,
+            int(st.bounds.shape[1]), sidx.spec.num_shards)
+        answers = drv.answers()
+        n_ops = drv.n_ops
+        if storage is not None:
+            # no save and staged rows undrained, as a crash leaves them;
+            # close() would flush a persister, so engine_kwargs refuses
+            # background_save here
+            persists = eng.stats.persists
+            eng.close()
+        del eng, sidx, table, drv.eng
+        gc.unfreeze()
+        gc.collect()
+        if on_gpu:
+            torch.cuda.empty_cache()
+        if storage is not None:
+            dir_bytes = _dir_bytes(storage)
+            recover_s, lo, hi, counts = _recover_and_probe(
+                storage, dev, kwargs, stream.newest_day(n_ops) + 1, sync)
+            probe = (n_ops, lo, hi, 0, counts, [None] * len(counts))
+            if on_gpu:
+                torch.cuda.empty_cache()
+            log(f"storage: {_fs_type(storage)}; the window wrote "
+                f"wchar {rec.get('written')} B; directory {dir_bytes} B after "
+                f"the drain; persists {persists} ("
+                f"{rec['engine'].get('persists', 0)} in the window); "
+                f"recover_s {recover_s:.3f}")
     finally:
         if recorder is not None:
             recorder.restore()
-    rec = windows[-1]
-    peak = torch.cuda.max_memory_allocated() if on_gpu else 0
-    st = sidx.state.shards
-    live = st.slot_live.sum(dim=1).cpu().tolist()
-    index_bytes = pb_bytes.index_nbytes(
-        st.num_entries.cpu().tolist(), live, sidx.cfg.words,
-        int(st.bounds.shape[1]), sidx.spec.num_shards)
-    answers = drv.answers()
-    n_ops = drv.n_ops
-    del eng, sidx, table, drv.eng
-    gc.unfreeze()
-    gc.collect()
-    if on_gpu:
-        torch.cuda.empty_cache()
+        if storage is not None:
+            shutil.rmtree(storage, ignore_errors=True)
 
     # -- the check, once the program's state is freed --------------------------
     t = clock()
@@ -478,6 +631,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     elif control is not None:
         raise ValueError(f"unknown control {control!r}")
     checks = pb_reference.judge(ref, answers)
+    if probe is not None:
+        got = pb_reference.judge(ref, [probe])
+        checks["lost_on_recovery"] = got["wrong_counts"] \
+            + got["missing_answers"]
     log(f"reference: {len(answers)} batches judged in "
         f"{clock() - t:.3f} s")
 
@@ -507,7 +664,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         else rec["reads_done"]
     attempted = reads + rec["ops_in_window"]
     failed = checks["wrong_counts"] + checks["wrong_row_ids"] \
-        + checks["missing_answers"]
+        + checks["missing_answers"] + checks.get("lost_on_recovery", 0)
     device_info = {"platform": "gpu" if on_gpu else "cpu",
                    "kind": torch.cuda.get_device_name(0) if on_gpu else "cpu",
                    "count": 1, "memory_peak_bytes": int(peak)}

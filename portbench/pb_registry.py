@@ -14,6 +14,14 @@ sits in a file of its own, found through ``BENCHMARK.json``:
 So a cell, a configuration, its writes or a metric is added by adding files
 and ``BENCHMARK.json`` entries; no file of the harness changes.
 
+A configuration may hold ``"engine"``: further ``QueryEngine`` keyword
+arguments (``mode``, ``wal_sync``, ``snapshot_on_drain``, ``snapshot_mode``,
+``background_save``, ``compact_every``, ``snapshot_keep``, ...), with
+``"storage_dir": true`` for a durable engine in a directory the harness
+gives each run and judges after a recovery (``pb_harness.engine_kwargs``;
+``batch``, ``top_k``, ``drain_policy``, ``drain_units`` and ``writer`` are
+the harness's and refused there).
+
 A stream module defines ``Stream(config, seed, data)`` (``data``: the
 ``pb_data.Data`` made for the run), whose answers depend on ``k`` or
 ``n_ops`` alone:

@@ -7,7 +7,8 @@
 - ``changes`` moves each order's days by its size, as ``issue`` sends it.
 - An order comes due with its first row.
 - ``dbgen.refresh`` runs correct with both kinds of operation and a vacuum
-  in its window; a twin stream with one delete's change off by one does not.
+  in its window, and reports ``refresh_ack_ms`` over all of them; a twin
+  stream with one delete's change off by one does not run correct.
 """
 import json
 import shutil
@@ -160,6 +161,16 @@ def test_dbgen_refresh_runs_correct_on_the_cpu(run_tiny, monkeypatch):
     w = rec["writer"]
     assert w["vacuums"] >= 1 and w["rows_deleted"] > 0 and w["staged"] > 0
     assert len(rec["delete_ms"]) == in_window.count("d")
+    # every operation due in the window, RF1 orders and RF2 deletes, from
+    # its due time to its acknowledgement, at least as long as the call
+    acks = np.asarray(rec["write_ms"])
+    calls = np.concatenate([np.asarray(rec["stage_us"]) / 1e3,
+                            rec["delete_ms"]])
+    assert acks.size == calls.size == n
+    assert acks.mean() >= calls.mean()
+    assert out["metrics"]["refresh_ack_ms"]["value"] == pytest.approx(
+        acks.mean())
+    assert "lost_on_recovery" not in out["checks"]
 
 
 # the stream with its first delete's change one row short
