@@ -102,7 +102,8 @@ from repro_torch.checkpointing.layout import (CorruptSnapshotError,
                                               read_section_file, section_sizes,
                                               write_section_file)
 from repro_torch.checkpointing.wal import (KIND_DELETE, KIND_INSERT,
-                                           KIND_RESUM, Journal)
+                                           KIND_INSERT_GROUP, KIND_RESUM,
+                                           KIND_ROW_DELETE, Journal)
 from repro_torch.device import resolve_device
 from repro_torch.runtime.faultinject import crashpoint
 from repro_torch.storage.table import PagedTable
@@ -809,7 +810,14 @@ def _replay_journal(root: Path, index: ShardedHippoIndex, meta: dict,
                     sections: dict, chain: list[tuple[dict, dict]],
                     wal_sync: bool):
     """Reattach the chain's staged state and replay the journal's records
-    past its watermark, in admission order; returns (writer, journal)."""
+    past its watermark, in admission order; returns (writer, journal).
+
+    A group insert restages its rows as ``write_many`` did. A row delete
+    applies to the table's validity; where its ids reach past the table's
+    tail, the crashed process had drained staged rows into the table after
+    the chain's last commit (``snapshot_on_drain=False``), so the writer
+    drains what it holds first: a staged row's position, and so its id,
+    is fixed when it is staged."""
     eff_meta, eff_sections = (chain[-1] if chain else (meta, sections))
     journal = Journal(root, index.spec.num_shards, sync=wal_sync)
     records = journal.replay(after=int(eff_meta.get("wal_seqno", 0)))
@@ -829,8 +837,23 @@ def _replay_journal(root: Path, index: ShardedHippoIndex, meta: dict,
                     f"journal replay routed a staged insert to shard {s} "
                     f"but the record was acknowledged on shard {rec.shard} "
                     f"— snapshot and journal disagree")
+        elif rec.kind == KIND_INSERT_GROUP:
+            shards = writer.write_many(rec.values)
+            if shards != rec.shards.tolist():
+                raise CorruptSnapshotError(
+                    f"journal replay routed a group insert to shards "
+                    f"{shards} but it was acknowledged on "
+                    f"{rec.shards.tolist()} — snapshot and journal disagree")
         elif rec.kind == KIND_DELETE:
             writer.delete(rec.lo, rec.hi)
+        elif rec.kind == KIND_ROW_DELETE:
+            try:
+                writer.delete_rows(rec.row_ids)
+            except IndexError:      # refused before any change
+                if not writer.queue_depth:
+                    raise
+                writer.flush()
+                writer.delete_rows(rec.row_ids)
         elif rec.kind == KIND_RESUM:
             writer.schedule_resummarize(bounds=rec.bounds, policy=rec.policy)
     if writer is not None:

@@ -18,6 +18,14 @@ inherently cross-shard). A global monotonically increasing sequence number
 stamps every record, so replay merges the files back into the exact
 admission order.
 
+Record kinds: the reference's three (one insert, a delete by key range, a
+re-summarization) and two of the port's own, both in ``global.log``: a
+group insert (``append_insert_group``: one transaction's rows, each its
+shard and value, so a torn tail drops the whole group and never part of
+it) and a delete by row id (``append_row_delete``: the ids). A journal
+that holds neither is byte-identical to the reference's; the reference
+stops its replay at a record of either, as at any unknown kind.
+
 Record framing (little-endian)::
 
     [crc32 u32][payload_len u32][seqno u64][kind u8][payload ...]
@@ -47,33 +55,53 @@ tolerates because every surviving record at or below the watermark is
 filtered by the watermark discipline anyway. Appends and truncations can
 race across threads (engine foreground vs. persister commit callback), so
 both run under one internal lock.
+
+An append's sync is ``os.fdatasync`` where the platform has it (Linux),
+else ``os.fsync``: the record's bytes and the file's new length reach the
+disk before the append returns, and its timestamps need not, as under
+PostgreSQL's default ``wal_sync_method`` on Linux. Resets and truncations
+still fsync whole files and the directory.
+
+``stats()`` counts the appends' syncs and the host time inside them;
+under a running profiler each append records the spans
+``hippo.wal.append`` (encode and write) and ``hippo.wal.sync`` (the
+sync).
 """
 from __future__ import annotations
 
 import os
 import struct
 import threading
+import time
+import zlib
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 
 from repro_torch.runtime.faultinject import crashpoint
+from repro_torch.spans import span
 
 _FRAME = struct.Struct("<IIQB")      # crc32, payload_len, seqno, kind
 
 KIND_INSERT = 1       # payload: <If  shard, value
 KIND_DELETE = 2       # payload: <ff  lo, hi
 KIND_RESUM = 3        # payload: <B   policy id, then (H+1,) f32 bounds
+# the port's own kinds (the reference has neither)
+KIND_INSERT_GROUP = 4  # payload: n x <If  shard, value (n >= 1)
+KIND_ROW_DELETE = 5    # payload: n x <q   row id (n >= 1)
 
 _INSERT = struct.Struct("<If")
 _DELETE = struct.Struct("<ff")
+_GROUP = np.dtype([("shard", "<u4"), ("value", "<f4")])   # _INSERT's rows
+_ROW_ID = np.dtype("<i8")
 
 # Policy ids are part of the on-disk format: append-only.
 _POLICY_IDS = {"equal_mass": 0, "learned": 1}
 _POLICY_NAMES = {v: k for k, v in _POLICY_IDS.items()}
 
 _MAX_PAYLOAD = 1 << 24     # sanity bound: no record carries >16 MiB
+_sync_record = getattr(os, "fdatasync", os.fsync)
 
 
 @dataclass(frozen=True)
@@ -87,6 +115,16 @@ class WalRecord:
     hi: float | None = None           # KIND_DELETE
     policy: str | None = None         # KIND_RESUM
     bounds: np.ndarray | None = None  # KIND_RESUM
+    shards: np.ndarray | None = None  # KIND_INSERT_GROUP: (n,) u32
+    values: np.ndarray | None = None  # KIND_INSERT_GROUP: (n,) f32
+    row_ids: np.ndarray | None = None  # KIND_ROW_DELETE: (n,) int64
+
+
+@dataclass
+class JournalStats:
+    """The appends' fsyncs and the host seconds inside them."""
+    syncs: int = 0
+    sync_s: float = 0.0
 
 
 def _decode(seqno: int, kind: int, payload: bytes) -> WalRecord | None:
@@ -102,6 +140,15 @@ def _decode(seqno: int, kind: int, payload: bytes) -> WalRecord | None:
         bounds = np.frombuffer(payload, np.float32, offset=1).copy()
         if policy is not None and bounds.size:
             return WalRecord(seqno, kind, policy=policy, bounds=bounds)
+    if kind == KIND_INSERT_GROUP and payload \
+            and len(payload) % _GROUP.itemsize == 0:
+        rows = np.frombuffer(payload, _GROUP)
+        return WalRecord(seqno, kind, shards=rows["shard"].copy(),
+                         values=rows["value"].copy())
+    if kind == KIND_ROW_DELETE and payload \
+            and len(payload) % _ROW_ID.itemsize == 0:
+        return WalRecord(seqno, kind,
+                         row_ids=np.frombuffer(payload, _ROW_ID).copy())
     return None      # unknown kind / malformed payload: treat as torn
 
 
@@ -124,6 +171,7 @@ class Journal:
         # callback) may run on different threads; file state is guarded
         self._lock = threading.Lock()
         self._handles: dict[str, object] = {}  # guarded-by: _lock
+        self._stats = JournalStats()  # guarded-by: _lock
         # resume seqno allocation after the highest surviving record, so
         # post-recovery appends always order after everything on disk
         records = self.replay()
@@ -138,22 +186,39 @@ class Journal:
     def _handle(self, name: str):  # requires-lock: _lock
         h = self._handles.get(name)
         if h is None or h.closed:
-            h = open(self.dir / name, "ab")
+            # unbuffered: each write is one syscall, with nothing to flush
+            h = open(self.dir / name, "ab", buffering=0)
             self._handles[name] = h
         return h
 
     def _append(self, name: str, kind: int, payload: bytes) -> int:
+        if len(payload) > _MAX_PAYLOAD:
+            # replay would read it as a torn tail: refuse it unwritten
+            raise ValueError(f"journal record of {len(payload)} B is over "
+                             f"the {_MAX_PAYLOAD} B a record may carry")
         crashpoint("wal.pre_append")
         with self._lock:
             seqno = self._next_seqno
-            crc = _crc(seqno, kind, payload)
-            h = self._handle(name)
-            h.write(_FRAME.pack(crc, len(payload), seqno, kind) + payload)
-            h.flush()
+            with span("hippo.wal.append"):
+                crc = _crc(seqno, kind, payload)
+                h = self._handle(name)
+                frame = memoryview(
+                    _FRAME.pack(crc, len(payload), seqno, kind) + payload)
+                while frame:
+                    frame = frame[h.write(frame):]
             if self.sync:
-                os.fsync(h.fileno())
+                with span("hippo.wal.sync"):
+                    t = time.perf_counter()
+                    _sync_record(h.fileno())
+                    self._stats.sync_s += time.perf_counter() - t
+                self._stats.syncs += 1
             self._next_seqno += 1
             return seqno
+
+    def stats(self) -> JournalStats:
+        """A copy of the fsync counters since this object was made."""
+        with self._lock:
+            return JournalStats(self._stats.syncs, self._stats.sync_s)
 
     def close(self) -> None:
         with self._lock:
@@ -187,6 +252,29 @@ class Journal:
                              "array")
         return self._append("global.log", KIND_RESUM,
                             bytes([pid]) + b.tobytes())
+
+    def append_insert_group(self, shards, values) -> int:
+        """One record for rows staged together (an order's lineitems):
+        each row's shard and value, in staging order. Replay restages all
+        of them or, if the record is torn, none."""
+        s = [int(x) for x in shards]
+        v = [float(x) for x in values]
+        if not s or len(s) != len(v):
+            raise ValueError(f"a group insert record needs one shard a "
+                             f"value and at least one row, got {len(s)} "
+                             f"shards and {len(v)} values")
+        if min(s) < 0 or max(s) >= self.num_shards:
+            raise ValueError(f"group insert shards outside "
+                             f"[0, {self.num_shards})")
+        return self._append("global.log", KIND_INSERT_GROUP,
+                            _group_payload(s, v))
+
+    def append_row_delete(self, row_ids) -> int:
+        """One record for a delete by row id: the ids, as given."""
+        ids = np.ascontiguousarray(np.asarray(row_ids, _ROW_ID).ravel())
+        if ids.size == 0:
+            raise ValueError("a row delete record needs at least one id")
+        return self._append("global.log", KIND_ROW_DELETE, ids.tobytes())
 
     # -- replay --------------------------------------------------------------
 
@@ -273,12 +361,20 @@ def _encode_payload(rec: WalRecord) -> bytes:
     if rec.kind == KIND_RESUM:
         return bytes([_POLICY_IDS[rec.policy]]) + \
             np.asarray(rec.bounds, np.float32).tobytes()
+    if rec.kind == KIND_INSERT_GROUP:
+        return _group_payload(rec.shards.tolist(), rec.values.tolist())
+    if rec.kind == KIND_ROW_DELETE:
+        return np.asarray(rec.row_ids, _ROW_ID).tobytes()
     raise ValueError(f"unknown record kind {rec.kind}")
 
 
+def _group_payload(shards: list[int], values: list[float]) -> bytes:
+    """A group insert's rows as ``_INSERT`` packs one: (shard, value)."""
+    return b"".join(map(_INSERT.pack, shards, values))
+
+
 def _crc(seqno: int, kind: int, payload: bytes) -> int:
-    import zlib
-    return zlib.crc32(struct.pack("<QB", seqno, kind) + payload)
+    return zlib.crc32(payload, zlib.crc32(struct.pack("<QB", seqno, kind)))
 
 
 def _scan_file(path: Path) -> list[WalRecord]:

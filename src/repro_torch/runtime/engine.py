@@ -31,9 +31,11 @@ the reference's for the same stream:
              skipped (``EngineStats.shards_pruned``), and counts sum over the
              dispatched shards.
 
-Writes (``runtime.writer.MaintenanceWriter``): ``write()``/``delete()``
-(by key range) and ``delete_rows()`` (by row id, the port's own: TPC-H's
-RF2 deletes named orders, whose lineitems are no key range) stage
+Writes (``runtime.writer.MaintenanceWriter``): ``write()``,
+``write_many()`` (rows as one transaction, the port's own: TPC-H's RF1
+inserts an order and its lineitems together), ``delete()`` (by key range)
+and ``delete_rows()`` (by row id, the port's own: TPC-H's RF2 deletes
+named orders, whose lineitems are no key range) stage
 maintenance instead of running Algorithm 3 on the query path; staged
 rows are overlaid into counts so results never go stale, and the engine
 drains shard queues under one of the reference's interleave policies:
@@ -56,16 +58,21 @@ unit per shard, drained by the policy); ``resummarize()`` does it on demand.
 window around the last remap, as the reference's does.
 
 Durable storage (``storage_dir``, writer-backed engines): every
-acknowledged ``write``/``delete``/``resummarize`` appends its journal record
+acknowledged ``write``, ``write_many`` (one record for all its rows),
+``delete``, ``delete_rows`` and ``resummarize`` appends its journal record
 before it is staged, the engine commits a full snapshot at start and, at
 each drain, a delta of the shards the drain changed (a full snapshot under
 ``snapshot_mode="full"`` or when the compaction policy fires: after
 ``compact_every`` deltas, or once the chain outweighs ``compact_ratio`` of
-its base), then truncates the journal through the commit's watermark.
-``background_save`` hands the file I/O to a ``runtime.persister`` thread.
+its base), then truncates the journal through the commit's watermark;
+with ``snapshot_on_drain=False`` only the first snapshot is taken, and a
+recovery replays every record since. ``background_save`` hands the file
+I/O to a ``runtime.persister`` thread.
 ``QueryEngine.recover(storage_dir, device=...)`` rebuilds an engine after
 a crash at any instant: the last committed snapshot, its delta chain and
-the journal's suffix. The files are the reference's, byte for byte.
+the journal's suffix. The files are the reference's, byte for byte,
+while no ``write_many`` or ``delete_rows`` record is in the journal (the
+port's own kinds, ``checkpointing.wal``).
 """
 from __future__ import annotations
 
@@ -159,6 +166,10 @@ class EngineStats:
     pruning_before_resummarize: float = 0.0
     window_selected_pages: int = 0
     window_table_pages: int = 0
+    # -- the port's own, after the reference's fields: the syncs of the
+    # journal the engine attached (checkpointing.wal.Journal.stats) --------
+    journal_syncs: int = 0         # one a record under wal_sync
+    journal_sync_us: float = 0.0   # host clock around those syncs
 
     @property
     def occupancy(self) -> float:
@@ -208,12 +219,12 @@ class QueryEngine:
 
     ``storage_dir`` makes a writer-backed engine durable (see the module
     docstring); the directory must be fresh (``recover`` adopts an existing
-    one). ``snapshot_on_drain`` commits at each drain, ``wal_sync`` fsyncs
-    each journal record, ``snapshot_mode`` (``"incremental"`` or
-    ``"full"``), ``compact_every``, ``compact_ratio`` and ``snapshot_keep``
-    (full snapshots kept, each with its chain) shape the commits, and
-    ``background_save`` with ``persist_queue`` moves their file I/O to a
-    persister thread.
+    one). ``snapshot_on_drain`` commits at each drain, ``wal_sync`` syncs
+    each journal record (fdatasync on Linux), ``snapshot_mode``
+    (``"incremental"`` or ``"full"``), ``compact_every``, ``compact_ratio``
+    and ``snapshot_keep`` (full snapshots kept, each with its chain) shape
+    the commits, and ``background_save`` with ``persist_queue`` moves their
+    file I/O to a persister thread.
     """
 
     def __init__(self, index, batch: int = 64, sharded: bool | None = None,
@@ -393,10 +404,28 @@ class QueryEngine:
                 return
             self.writer.write(float(value))
             self._maybe_schedule_resummarize()
-            if (self.drain_policy == "on_depth"
-                    and self._maintenance_backlog() >= self.drain_depth):
-                self._drain(None)
-            self._sync_writer_stats()
+            self._after_staging()
+
+    def write_many(self, values) -> int:
+        """Insert rows as one transaction (an order and its lineitems):
+        under sync Algorithm 3 for each; otherwise the writer stages them
+        where as many ``write`` calls would, behind one journal record, so
+        they are acknowledged together and a crash keeps all or none. The
+        drift and ``on_depth`` triggers are checked once, after the group,
+        where ``write`` checks them after each row: a group that crosses
+        the drift threshold schedules its remap after its last row, not
+        after the row that crossed it. Returns the rows written."""
+        with span("hippo.engine.write"):
+            vals = [float(v) for v in values]
+            if self.writer is None:
+                for v in vals:
+                    self.index.insert(v)
+            elif vals:
+                self.writer.write_many(vals)
+                self._maybe_schedule_resummarize()
+                self._after_staging()
+            self.stats.writes += len(vals)
+            return len(vals)
 
     def delete(self, lo: float, hi: float) -> int:
         """Delete tuples with key in [lo, hi]; the validity update is
@@ -413,10 +442,7 @@ class QueryEngine:
         self.stats.deletes += n
         # deletes add vacuum work, not queue depth: the on_depth trigger
         # must fire here too
-        if (self.drain_policy == "on_depth"
-                and self._maintenance_backlog() >= self.drain_depth):
-            self._drain(None)
-        self._sync_writer_stats()
+        self._after_staging()
         return n
 
     def delete_rows(self, row_ids) -> int:
@@ -425,8 +451,8 @@ class QueryEngine:
         as ``delete``'s, and the host work grows with the ids, not with the
         table. Under sync the index vacuums at once (skipped if nothing was
         deleted); otherwise the ids' shards queue vacuum units
-        (``MaintenanceWriter.delete_rows``, which also refuses while a
-        journal is attached). Ids past the table's tail are refused
+        (``MaintenanceWriter.delete_rows``, which journals the ids first on
+        a durable engine). Ids past the table's tail are refused
         (IndexError), ids already deleted count 0. Returns tuples deleted."""
         with span("hippo.engine.delete_rows"):
             if self.writer is None:
@@ -437,11 +463,16 @@ class QueryEngine:
                 return n
             n = self.writer.delete_rows(row_ids)
             self.stats.deletes += n
-            if (self.drain_policy == "on_depth"
-                    and self._maintenance_backlog() >= self.drain_depth):
-                self._drain(None)
-            self._sync_writer_stats()
+            self._after_staging()
             return n
+
+    def _after_staging(self) -> None:
+        """After the writer staged a write or a delete: the ``on_depth``
+        drain, then the writer's counters mirrored into the stats."""
+        if (self.drain_policy == "on_depth"
+                and self._maintenance_backlog() >= self.drain_depth):
+            self._drain(None)
+        self._sync_writer_stats()
 
     def flush(self) -> int:
         """Drain every pending remap, shard queue and vacuum now. Returns
@@ -746,6 +777,9 @@ class QueryEngine:
             with self._durable_lock:
                 wm = self._durable_watermark
             st.persist_lag = max(0, self.journal.last_seqno - wm)
+            js = self.journal.stats()
+            st.journal_syncs = js.syncs
+            st.journal_sync_us = js.sync_s * 1e6
         if self._persister is not None:
             st.persist_pending = self._persister.pending
         st.drains = w.stats.drains

@@ -47,11 +47,12 @@ land under the new bounds; each remapped shard bumps its ``bounds_epochs``
 entry.
 
 Durability: with a ``checkpointing.wal.Journal`` attached (``journal``),
-every staged insert, every delete and every scheduled re-summarization
-appends its record before the writer changes any state (append before
-admission), so an acknowledged operation survives a crash at any instant
-(the journal has no record for a row delete: ``delete_rows`` is refused
-while one is attached);
+every staged insert, every delete (by key range or by row id) and every
+scheduled re-summarization appends its record before the writer changes
+any state (append before admission), so an acknowledged operation
+survives a crash at any instant. ``write_many`` stages rows as one
+transaction: one record for all of them (one sync), then each row as
+``write`` stages it; ``write`` appends a record a row.
 ``checkpointing.snapshot.recover_index`` replays the journal through a
 fresh writer. ``dirty_checkpoint_shards`` is the delta capture set of the
 durable commits.
@@ -162,8 +163,9 @@ class MaintenanceWriter:
                 f"rows pending: flush() it before attaching a new one")
         self.index = index
         index.staging = self
-        # write-ahead journal: write(), delete() and schedule_resummarize()
-        # append their record before mutating anything
+        # write-ahead journal: write(), write_many(), delete(), delete_rows()
+        # and schedule_resummarize() append their record before mutating
+        # anything
         self.journal = journal
         self._queues: dict[int, _ShardQueue] = {}
         self._staged_total = 0       # pending tuples, dead rows included
@@ -199,36 +201,62 @@ class MaintenanceWriter:
             return 0
         return t.num_pages * t.page_card - (t.page_card - t.fill)
 
-    def write(self, value: float) -> int:
-        """Stage one insert; returns the owning shard.
-
-        The k-th staged tuple's page is fixed by the table tail (appends are
-        sequential). Refuses, before staging, a write the shard layout can
-        never hold.
-        """
-        self.index._check_swap_guard()
-        self._check_attached()
+    def _route(self, n: int) -> list[int]:
+        """The owning shards of the next ``n`` staged tuples. The k-th
+        staged tuple's page is fixed by the table tail (appends are
+        sequential). Refuses a tuple the shard layout can never hold."""
         spec = self.index.spec
         pos = self._tail_pos() + self._staged_total
-        page = pos // self.index.table.page_card
-        s = spec.owner(page)
-        if s >= spec.num_shards:
+        card = self.index.table.page_card
+        shards = [spec.owner((pos + i) // card) for i in range(n)]
+        if shards and shards[-1] >= spec.num_shards:
+            page = (pos + n - 1) // card
             raise RuntimeError(
                 f"shard layout full: staged tuple would land on page {page}, "
                 f"past shard {spec.num_shards - 1}'s slab "
                 f"(pages_per_shard={spec.pages_per_shard}); rebuild with more "
                 f"shards or larger slabs")
+        return shards
+
+    def _stage(self, shards: list[int], values: list[float]) -> None:
+        for s, v in zip(shards, values):
+            self._queues.setdefault(s, _ShardQueue()).append(v)
+        self._staged_total += len(values)
+        self._version += 1
+        self._dev_cache = None
+        self.stats.staged += len(values)
+        self.drift.observe(np.asarray(values, np.float32))
+
+    def write(self, value: float) -> int:
+        """Stage one insert; returns the owning shard. Refuses, before
+        staging, a write the shard layout can never hold."""
+        self.index._check_swap_guard()
+        self._check_attached()
+        [s] = self._route(1)
         if self.journal is not None:
             # durable before acknowledged: if this append fails, the write
             # raises with nothing staged and nothing to lose
             self.journal.append_insert(s, float(value))
-        self._queues.setdefault(s, _ShardQueue()).append(float(value))
-        self._staged_total += 1
-        self._version += 1
-        self._dev_cache = None
-        self.stats.staged += 1
-        self.drift.observe(value)
+        self._stage([s], [float(value)])
         return s
+
+    def write_many(self, values) -> list[int]:
+        """Stage rows as one transaction; returns each row's owning shard.
+        The rows land where as many ``write`` calls would put them, with
+        the same queues, drift observations and stats, but the journal
+        takes one record for all of them, so a crash keeps all or none.
+        Refuses, before staging any, a group the shard layout cannot hold
+        whole."""
+        self.index._check_swap_guard()
+        self._check_attached()
+        vals = [float(v) for v in values]
+        shards = self._route(len(vals))
+        if not vals:
+            return []
+        if self.journal is not None:
+            self.journal.append_insert_group(shards, vals)
+        self._stage(shards, vals)
+        return shards
 
     def delete(self, lo: float, hi: float) -> int:
         """Table tuples in [lo, hi] go invalid now (queries read the validity
@@ -261,20 +289,18 @@ class MaintenanceWriter:
         shards queue vacuum units as ``delete``'s do. The host work grows
         with the ids, not with the table: the shards come from the ids' own
         pages, and the cached slab view has just those tuples' bits cleared
-        in place (``PagedTable.sync_slab_view``). Refused before any
-        change: an id past the table's tail (a staged row has no id until
-        its drain; IndexError), and any call while a journal is attached
-        (it has no record for a row delete). Ids already deleted count 0;
+        in place (``PagedTable.sync_slab_view``). An id past the table's
+        tail is refused before any change (a staged row has no id until
+        its drain; IndexError). With a journal attached the ids are
+        journaled first, as one record. Ids already deleted count 0;
         returns the tuples deleted."""
         self.index._check_swap_guard()
         self._check_attached()
-        if self.journal is not None:
-            raise RuntimeError(
-                "delete_rows refused: the write-ahead journal has no record "
-                "for a row delete, so it could not survive a crash; delete "
-                "by key range, or serve row deletes without storage_dir")
         table = self.index.table
-        ids = table.delete_rows(row_ids)
+        ids = table.checked_row_ids(row_ids)
+        if self.journal is not None and ids.size:
+            self.journal.append_row_delete(ids)
+        ids = table.delete_checked_rows(ids)
         if ids.size:
             pages = ids // table.page_card
             self._dirty_since_checkpoint.update(int(s) for s in np.unique(

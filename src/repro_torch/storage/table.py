@@ -327,13 +327,9 @@ class PagedTable:
         self._mutated(pages=np.flatnonzero(npages))
         return int(hit.sum())
 
-    def delete_rows(self, row_ids) -> np.ndarray:
-        """Mark the live tuples at global row ids (``page * page_card +
-        slot``) deleted and set their pages' dirty notes; the work grows
-        with the ids, not with the table. Raises IndexError, before any
-        change, for an id below 0 or at or past the append tail. Returns
-        the ids of the tuples it deleted, ascending and unique (ids already
-        deleted, or given twice, are left out)."""
+    def checked_row_ids(self, row_ids) -> np.ndarray:
+        """``row_ids`` unique and ascending, as int64; IndexError for an id
+        below 0 or at or past the append tail. Changes nothing."""
         ids = np.unique(np.asarray(row_ids, np.int64).ravel())
         tail = (self.num_pages - 1) * self.page_card + self.fill \
             if self.num_pages else 0
@@ -341,6 +337,19 @@ class PagedTable:
             bad = int(ids[0] if ids[0] < 0 else ids[-1])
             raise IndexError(f"row id {bad} outside the table's {tail} "
                              f"appended tuples")
+        return ids
+
+    def delete_rows(self, row_ids) -> np.ndarray:
+        """Mark the live tuples at global row ids (``page * page_card +
+        slot``) deleted and set their pages' dirty notes; the work grows
+        with the ids, not with the table. Raises IndexError, before any
+        change, for an id below 0 or at or past the append tail. Returns
+        the ids of the tuples it deleted, ascending and unique (ids already
+        deleted, or given twice, are left out)."""
+        return self.delete_checked_rows(self.checked_row_ids(row_ids))
+
+    def delete_checked_rows(self, ids: np.ndarray) -> np.ndarray:
+        """``delete_rows`` for ids that ``checked_row_ids`` returned."""
         pages, slots = np.divmod(ids, self.page_card)
         hit = self.valid[pages, slots]
         if not hit.any():

@@ -12,8 +12,9 @@ CPU.
   upload of the host table; so does it at the read after each of the sync
   engine's mutations, which copies only what the mutation changed.
 - Refusals leave everything as it was: an id past the tail (a staged row
-  has no id), a negative id, a call with a journal attached, a call while a
-  swap is in flight.
+  has no id), a negative id, a call while a swap is in flight; with a
+  journal attached such a refusal appends no record, and a delete that
+  goes through appends one, its ids, before anything changes.
 - The call does no whole-table work: no range mask, no dirty scan, no slab
   copy; ``on_depth`` fires on it.
 """
@@ -270,21 +271,25 @@ def test_a_journaled_or_mid_swap_writer_refuses_row_deletes(tmp_path):
     rng = np.random.default_rng(89)
     eng = _engine("sharded", "manual")
     eng.run_all(_preds(rng))
-    eng.writer.journal = Journal(tmp_path / "j", 3, sync=False)
+    journal = Journal(tmp_path / "j", 3, sync=False)
+    eng.writer.journal = journal
     eng.write(4.0)
     before = _snapshot(eng)
-    seqno = eng.writer.journal.last_seqno
-    with pytest.raises(RuntimeError, match="no record for a row delete"):
-        eng.delete_rows([0, 1, 2])
+    seqno = journal.last_seqno
+    # an id past the tail (the staged row's) is refused unjournaled
+    with pytest.raises(IndexError):
+        eng.delete_rows([0, 1, VALUES.size])
     _assert_same(before, _snapshot(eng))
-    assert eng.writer.journal.last_seqno == seqno == 1
-    eng.writer.journal = None
+    assert journal.last_seqno == seqno == 1
     eng.index.swap_in_flight = 1
     with pytest.raises(RuntimeError, match="swap in flight"):
         eng.delete_rows([0, 1, 2])
     eng.index.swap_in_flight = None
     _assert_same(before, _snapshot(eng))
-    assert eng.delete_rows([0, 1, 2]) == 3
+    assert journal.last_seqno == 1
+    assert eng.delete_rows([2, 0, 1, 1]) == 3
+    [rec] = journal.replay(after=1)
+    assert rec.row_ids.tolist() == [0, 1, 2]
 
 
 def test_a_row_delete_does_no_whole_table_work(monkeypatch):

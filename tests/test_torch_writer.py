@@ -35,6 +35,8 @@ from repro_torch.storage.table import PagedTable as TTable
 TIMES = {"drain_us", "last_drain_us", "total_drain_us"}   # wall clock
 # the port's own WriterStats counters, after the reference's fields
 PORT_ONLY = ("rows_deleted", "patch_bytes")
+# the port's own EngineStats counters (the journal's), after the reference's
+ENGINE_PORT_ONLY = ("journal_syncs", "journal_sync_us")
 
 
 def _host(x) -> np.ndarray:
@@ -64,7 +66,8 @@ def _assert_index_equal(j, t):
 
 def _stats(stats) -> dict:
     return {k: v for k, v in dataclasses.asdict(stats).items()
-            if k not in TIMES and k not in PORT_ONLY}
+            if k not in TIMES and k not in PORT_ONLY
+            and k not in ENGINE_PORT_ONLY}
 
 
 def _assert_writer_equal(jw, tw):
